@@ -1,0 +1,152 @@
+"""Ligero (Reed-Solomon) encoding for the 2d polynomial commitment.
+
+Counterpart of ``lcpc_proof_of_storage_tpu/codes/ligero.py``: the same
+dimension solver and soundness formulas (lcpc-ligero-pc/src/lib.rs), with
+the row encode going through :func:`ops.ntt.ntt` (kernel K1 on CUDA).
+
+  * n_col_opens = ceil(-lambda / log2((1+rho)/2))          (lib.rs:61-64)
+  * n_degree_tests via lcpc-2d's formula                    (lib.rs:66-68)
+  * _get_dims proof-size-optimizing solver                  (lib.rs:70-112)
+  * dims_ok: n_per_row < n_cols and n_cols a power of two   (lib.rs:114-118)
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from fractions import Fraction
+
+import torch
+
+from lcpc_proof_of_storage_tpu.fields.field import FieldSpec
+
+from ..core.encoding import LcEncoding, n_degree_tests, next_power_of_two
+from ..ops.ntt import NttTables, ntt
+
+LAMBDA = 128
+
+
+class LigeroEncoding(LcEncoding):
+    """Reed-Solomon row code at rate rho = rho_num/rho_den (default 1/2).
+
+    The encoding owns the NTT tables of its row length, an ``nn.Module``
+    built on the CPU and copied once to each other device it encodes on
+    (:meth:`tables`).  :meth:`encode` runs on the device of its input, so
+    one encoding serves callers on several devices and no call moves it."""
+
+    def __init__(self, spec: FieldSpec, n_per_row: int, n_cols: int,
+                 rho: tuple[int, int] = (1, 2)):
+        if not self._dims_ok(n_per_row, n_cols):
+            raise ValueError(f"bad Ligero dims ({n_per_row}, {n_cols})")
+        if n_cols > (1 << spec.two_adicity):
+            raise ValueError("no NTT subgroup of this size")
+        self.spec = spec
+        self.rho_num, self.rho_den = rho
+        self.n_per_row = n_per_row
+        self.n_cols = n_cols
+        self.ntt_tables = NttTables(spec, n_cols)
+        self._tables_on = {self.ntt_tables.device: self.ntt_tables}
+
+    # -- constructors --------------------------------------------------------
+    @classmethod
+    def new(cls, length: int, spec: FieldSpec, rho: tuple[int, int] = (1, 2)):
+        dims = cls._get_dims(length, spec, rho)
+        if dims is None:
+            raise ValueError("no valid dims")
+        _, n_per_row, n_cols = dims
+        return cls(spec, n_per_row, n_cols, rho)
+
+    @classmethod
+    def new_ml(cls, n_vars: int, spec: FieldSpec, rho: tuple[int, int] = (1, 2)):
+        n_monomials = 1 << n_vars
+        dims = cls._get_dims(n_monomials, spec, rho)
+        if dims is None:
+            raise ValueError("no valid dims")
+        n_rows, n_per_row, n_cols = dims
+        if (n_rows & (n_rows - 1) or n_per_row & (n_per_row - 1)
+                or n_rows * n_per_row != n_monomials):
+            raise ValueError("multilinear dims must be powers of two")
+        return cls(spec, n_per_row, n_cols, rho)
+
+    @classmethod
+    def new_from_dims(cls, n_per_row: int, n_cols: int, spec: FieldSpec,
+                      rho: tuple[int, int] = (1, 2)):
+        return cls(spec, n_per_row, n_cols, rho)
+
+    # -- soundness math ------------------------------------------------------
+    @classmethod
+    def _n_col_opens(cls, rho: tuple[int, int]) -> int:
+        r = rho[0] / rho[1]
+        return math.ceil(-LAMBDA / math.log2((1.0 + r) / 2.0))
+
+    @classmethod
+    def _n_degree_tests(cls, n_cols: int, spec: FieldSpec) -> int:
+        return n_degree_tests(LAMBDA, n_cols, spec.num_bits - 1)
+
+    @classmethod
+    def _get_dims(cls, length: int, spec: FieldSpec,
+                  rho: tuple[int, int]) -> tuple[int, int, int] | None:
+        """Proof-size-optimizing dims solver (lcpc-ligero-pc lib.rs:70-112)."""
+        n_col_opens = cls._n_col_opens(rho)
+        r = rho[0] / rho[1]
+        lncf = float(n_col_opens * length)
+        ndt = float(cls._n_degree_tests(math.ceil(math.sqrt(lncf) / r), spec))
+        nc1 = next_power_of_two(math.ceil(math.sqrt(lncf / ndt) / r))
+        if nc1 > (1 << spec.two_adicity):
+            return None
+
+        np1 = nc1 * rho[0] // rho[1]
+        nr1 = (length + np1 - 1) // np1
+        nd1 = cls._n_degree_tests(nc1, spec)
+
+        nc2 = nc1 // 2
+        np2 = np1 // 2
+        if np2 == 0:
+            return (nr1, np1, nc1)
+        nr2 = (length + np2 - 1) // np2
+        nd2 = cls._n_degree_tests(nc2, spec)
+
+        sz1 = n_col_opens * nr1 + (1 + nd1) * np1
+        sz2 = n_col_opens * nr2 + (1 + nd2) * np2
+        return (nr1, np1, nc1) if sz1 < sz2 else (nr2, np2, nc2)
+
+    @staticmethod
+    def _dims_ok(n_per_row: int, n_cols: int) -> bool:
+        return 0 < n_per_row < n_cols and n_cols & (n_cols - 1) == 0
+
+    # -- LcEncoding ----------------------------------------------------------
+    def tables(self, device: torch.device) -> NttTables:
+        """The NTT tables on `device` (an indexed device, as a tensor's)."""
+        if device not in self._tables_on:
+            self._tables_on[device] = copy.deepcopy(self.ntt_tables).to(device)
+        return self._tables_on[device]
+
+    def encode(self, rows: torch.Tensor, n_nonzero: int | None = None) -> torch.Tensor:
+        """NTT of (batch, n_cols, L) rows whose coefficients sit in the first
+        `n_nonzero` positions (default n_per_row), on the rows' device."""
+        if rows.shape[-2] != self.n_cols:
+            raise ValueError(f"encode: rows of {rows.shape[-2]} positions, code has {self.n_cols}")
+        return ntt(rows, self.spec, self.n_per_row if n_nonzero is None else n_nonzero,
+                   self.tables(rows.device))
+
+    def get_dims(self, length: int) -> tuple[int, int, int]:
+        n_rows = (length + self.n_per_row - 1) // self.n_per_row
+        return (n_rows, self.n_per_row, self.n_cols)
+
+    def dims_ok(self, n_per_row: int, n_cols: int) -> bool:
+        return (self._dims_ok(n_per_row, n_cols)
+                and n_per_row == self.n_per_row and n_cols == self.n_cols)
+
+    def get_n_col_opens(self) -> int:
+        return self._n_col_opens((self.rho_num, self.rho_den))
+
+    def get_n_degree_tests(self) -> int:
+        return self._n_degree_tests(self.n_cols, self.spec)
+
+    @property
+    def rho(self) -> Fraction:
+        return Fraction(self.rho_num, self.rho_den)
+
+    def __repr__(self):
+        return (f"LigeroEncoding({self.spec.name}, n_per_row={self.n_per_row}, "
+                f"n_cols={self.n_cols}, rho={self.rho_num}/{self.rho_den})")

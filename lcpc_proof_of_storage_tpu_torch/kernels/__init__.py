@@ -1,0 +1,147 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources are ``csrc/*.cu``: plain C entry points, compiled by ``nvcc``
+for sm_90a into one shared library and loaded with ``ctypes``.  Nothing is
+built or loaded when this module is imported: the first kernel call builds
+the library into ``build/torch_kernels/<hash of the sources>/`` at the root
+of the checkout (listed in ``.gitignore``), so a fresh checkout on a
+machine with a card builds everything on its first run.
+
+Every entry point returns the ``cudaGetLastError()`` code after its
+launches; :class:`Kernel` raises on a non-zero code and counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME") and Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc",
+                 shutil.which("nvcc"), Path("/usr/local/cuda/bin/nvcc")):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the library for the current sources, unless it
+    is already there; returns its path."""
+    out_dir = BUILD_ROOT / source_hash()
+    so = out_dir / "liblcpc_kernels.so"
+    if so.exists():
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.lcpc_error_string.argtypes = [ctypes.c_int]
+        lib.lcpc_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+
+class Kernel:
+    """One C entry point of the library, with its launch count.
+
+    ``launches`` counts the calls that launched the kernel; a caller that
+    wants the launches of one run sets it to 0 first."""
+
+    def __init__(self, symbol: str, argtypes: list):
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(library(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        rc = self._fn(*args)
+        if rc != 0:
+            msg = library().lcpc_error_string(rc).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
+        self.launches += 1
+
+
+# csrc/ntt.cu: in, out, work, tw, batch, log_n, n_nonzero, W, p_host, stream
+NTT_FORWARD = Kernel("lcpc_ntt_forward", [P, P, P, P, I, I, I, I, P, P])
+# csrc/blake3.cu: in, out, n_rows, n_cols, W, big_endian, stream
+BLAKE3_LEAVES = Kernel("lcpc_blake3_leaves", [P, P, I, I, I, I, P])
+# csrc/blake3.cu: nodes, out, n_parents, stream
+BLAKE3_PARENTS = Kernel("lcpc_blake3_parents", [P, P, I, P])
+# csrc/collapse.cu: coeffs, t, out, rows, npr, T, L, p_host, mu_host, mu_len, stream
+COLLAPSE = Kernel("lcpc_collapse", [P, P, P, I, I, I, I, P, P, I, P])
+
+KERNELS = {"ntt": NTT_FORWARD, "blake3_leaves": BLAKE3_LEAVES,
+           "blake3_parents": BLAKE3_PARENTS, "collapse": COLLAPSE}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's (or numpy array's) data pointer as a c_void_p."""
+    return ctypes.c_void_p(t.data_ptr() if hasattr(t, "data_ptr") else t.ctypes.data)
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    """The current CUDA stream of tensor t's device, as a c_void_p."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_cuda(name: str, t, dtype) -> None:
+    """Raise unless t is a contiguous CUDA tensor of dtype."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
