@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with a card:
 
-    python3 chip_profile.py [--glibc-malloc]
+    python3 chip_profile.py
 
 It commits 2^20 ft255 coefficients (Ligero rho=1/4, as chip_smoke.py's
 main path), then times commit, prove and verify RUNS times each after two
@@ -12,46 +12,30 @@ min and max), and profiles one more call of each: device kernel time and
 busy share from torch.profiler, the host's hottest functions from cProfile
 (which inflates host time).  The last line is a JSON summary.
 
-Importing the port runs the reference package's ``__init__``, which tunes
-glibc malloc for the whole process (1 GiB mmap and trim thresholds,
-``lcpc_proof_of_storage_tpu/utils/hostmem.py``).  ``--glibc-malloc``
-registers the reference package without running its ``__init__`` before
-the port is imported, so glibc's defaults stay; comparing the two runs
-shows what the tuning does to the host-bound prove and verify.
+The port imports nothing of the JAX package, so the process runs with
+glibc malloc's defaults: the reference's allocator tuning (its package
+``__init__``) never runs here.
 """
 
 from __future__ import annotations
 
-import argparse
 import cProfile
 import json
 import pstats
 import statistics
 import sys
 import time
-import types
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 RUNS = 10
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--glibc-malloc", action="store_true",
-                    help="keep glibc's malloc defaults (skip the reference's tuning)")
-    args = ap.parse_args()
-
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
-    if args.glibc_malloc:
-        pkg = types.ModuleType("lcpc_proof_of_storage_tpu")
-        pkg.__path__ = [str(ROOT / "lcpc_proof_of_storage_tpu")]
-        sys.modules[pkg.__name__] = pkg
-
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -59,10 +43,8 @@ def main() -> int:
     from lcpc_proof_of_storage_tpu_torch import LigeroEncoding, Transcript, commit, prove, verify
     from lcpc_proof_of_storage_tpu_torch.fields import FT255
 
-    tuned = "lcpc_proof_of_storage_tpu.utils.hostmem" in sys.modules
     card = card_line()
-    print(f"card: {card}; malloc: {'tuned by the reference' if tuned else 'glibc defaults'}",
-          flush=True)
+    print(f"card: {card}", flush=True)
 
     dev = torch.device("cuda", 0)
     spec = FT255
@@ -89,7 +71,7 @@ def main() -> int:
              "prove": lambda: prove(comm, outer, enc, tr()),
              "verify": lambda: verify(root, outer, inner, proof, enc, tr(), device=dev)}
     cuda = torch.autograd.DeviceType.CUDA
-    summary = {"card": card, "malloc": "tuned" if tuned else "glibc", "steps": {}}
+    summary = {"card": card, "steps": {}}
     for name, fn in steps.items():
         for _ in range(2):
             fn()

@@ -1,24 +1,27 @@
-"""PyTorch / CUDA port of the Ligero commit -> prove -> verify path.
+"""PyTorch / CUDA port of the Ligero and Brakedown commit -> prove -> verify
+paths.
 
 The JAX package ``lcpc_proof_of_storage_tpu`` is the reference; this
-package reproduces its outputs bit for bit.  On CUDA tensors the row
-encode, column hash, Merkle layers and collapse run as hand-written sm_90a
-kernels (``csrc/``, built at first use by ``kernels``); on CPU tensors they
-run as plain PyTorch.  Typical entry points:
+package reproduces its outputs bit for bit and imports nothing of it.  On
+CUDA tensors the row encodes (NTT, expander mat-vec), column hash, Merkle
+layers and collapse run as hand-written sm_90a kernels (``csrc/``, built at
+first use by ``kernels``); on CPU tensors they run as plain PyTorch.
+Typical entry points:
 
-    from lcpc_proof_of_storage_tpu_torch import (LigeroEncoding, Transcript, commit,
-                                                 prove, verify, serialize_proof)
+    from lcpc_proof_of_storage_tpu_torch import (BrakedownEncoding, LigeroEncoding,
+                                                 Transcript, commit, prove, verify,
+                                                 serialize_proof)
 
-The transcript, ChaCha, path fold and proof serialization are the
-reference's own JAX-free host modules, re-exported here.  Importing any of
-them runs the reference package's ``__init__``, which tunes glibc malloc
-for the whole process (``utils/hostmem.py``: 1 GiB mmap and trim
-thresholds).
+The transcript, ChaCha, path folds, matgen walk and proof serialization are
+host code: the port's own copies of the reference's JAX-free modules
+(``crypto/``, ``fields/field.py``, ``utils/serde.py``) and of its C++ host
+library (``native/``).
 """
 
 __version__ = "0.1.0"
 
 _LAZY = {
+    "BrakedownEncoding": ".codes.brakedown",
     "LigeroEncoding": ".codes.ligero",
     "commit": ".core.commit",
     "prove": ".core.commit",
@@ -28,8 +31,9 @@ _LAZY = {
     "VerifierError": ".core.commit",
     "ProverError": ".core.commit",
     "Transcript": ".core.commit",
-    "serialize_proof": "lcpc_proof_of_storage_tpu.utils.serde",
-    "proof_to_json": "lcpc_proof_of_storage_tpu.utils.serde",
+    "serialize_proof": ".utils.serde",
+    "deserialize_proof": ".utils.serde",
+    "proof_to_json": ".utils.serde",
 }
 
 

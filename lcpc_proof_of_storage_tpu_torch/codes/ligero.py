@@ -18,9 +18,8 @@ from fractions import Fraction
 
 import torch
 
-from lcpc_proof_of_storage_tpu.fields.field import FieldSpec
-
 from ..core.encoding import LcEncoding, n_degree_tests, next_power_of_two
+from ..fields.field import FieldSpec
 from ..ops.ntt import NttTables, ntt
 
 LAMBDA = 128
@@ -121,13 +120,16 @@ class LigeroEncoding(LcEncoding):
             self._tables_on[device] = copy.deepcopy(self.ntt_tables).to(device)
         return self._tables_on[device]
 
-    def encode(self, rows: torch.Tensor, n_nonzero: int | None = None) -> torch.Tensor:
-        """NTT of (batch, n_cols, L) rows whose coefficients sit in the first
-        `n_nonzero` positions (default n_per_row), on the rows' device."""
-        if rows.shape[-2] != self.n_cols:
-            raise ValueError(f"encode: rows of {rows.shape[-2]} positions, code has {self.n_cols}")
-        return ntt(rows, self.spec, self.n_per_row if n_nonzero is None else n_nonzero,
-                   self.tables(rows.device))
+    def encode(self, rows: torch.Tensor) -> torch.Tensor:
+        """NTT of (batch, width, L) coefficient rows zero-padded to n_cols, on
+        the rows' device.  Every one of the `width` coefficients enters the
+        codeword, so an over-long proof row fails the degree check."""
+        batch, width, L = rows.shape
+        if width > self.n_cols:
+            raise ValueError(f"encode: rows of {width} coefficients, code has {self.n_cols}")
+        padded = rows.new_zeros((batch, self.n_cols, L))
+        padded[:, :width] = rows
+        return ntt(padded, self.spec, width, self.tables(rows.device))
 
     def get_dims(self, length: int) -> tuple[int, int, int]:
         n_rows = (length + self.n_per_row - 1) // self.n_per_row

@@ -2,16 +2,17 @@
 
 Counterpart of ``lcpc_proof_of_storage_tpu/core/commit.py`` (itself a
 re-creation of lcpc-2d/src/lib.rs: commit 651-700, merkleize 720-815,
-open_column 818-855, prove 1034-1123, verify 862-982).  The row encode,
-column hash, Merkle layers and tensor collapse run on the commitment's
-device (kernels K1, K2 and K3 on CUDA); the merlin transcript, ChaCha
+open_column 818-855, prove 1034-1123, verify 862-982), for any
+:class:`~.encoding.LcEncoding` (Ligero, Brakedown).  The row encode, column
+hash, Merkle layers and tensor collapse run on the commitment's device (the
+encoding's kernel, K2 and K3 on CUDA); the merlin transcript, ChaCha
 challenge expansion and the Merkle path folds run on the host through the
-reference's own JAX-free modules, so challenges and proofs are bit-equal.
+port's copies of the reference's host modules, so challenges and proofs are
+bit-equal.
 
 Proof objects live on the host and keep the reference's attribute names
 (``LcColumn._col/_limbs/_path/_sibs/_sibi``, ``_LimbRow._limbs``), so
-``lcpc_proof_of_storage_tpu.utils.serde.serialize_proof`` writes the same
-bincode bytes for a proof of either package.
+``utils.serde.serialize_proof`` writes the reference's bincode bytes.
 """
 
 from __future__ import annotations
@@ -21,13 +22,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from lcpc_proof_of_storage_tpu.crypto.blake3_ref import blake3
-from lcpc_proof_of_storage_tpu.crypto.chacha import ChaChaRng, UniformUsize
-from lcpc_proof_of_storage_tpu.crypto.transcript import Transcript
-from lcpc_proof_of_storage_tpu.fields.field import FieldSpec, ints_to_limbs, limbs_to_ints
-from lcpc_proof_of_storage_tpu.native import fold_paths_native
-
+from ..crypto.blake3_ref import blake3
+from ..crypto.chacha import ChaChaRng, UniformUsize
+from ..crypto.transcript import Transcript
+from ..fields.field import FieldSpec, ints_to_limbs, limbs_to_ints
 from ..fields.limb import limb_field
+from ..native import fold_paths_native
 from ..ops.blake3 import digest_to_bytes, digests_to_bytes, hash_columns, merkle_parents
 from ..ops.collapse import collapse
 from .encoding import (LABEL_CO, LABEL_DT, LABEL_PE, LABEL_PR, LcEncoding, ceil_log2,
@@ -239,21 +239,23 @@ def merkle_tree_device(leaves: torch.Tensor, n_cols: int) -> torch.Tensor:
     return torch.cat(layers)
 
 
-def _encode_matrix(coeff_mat: torch.Tensor, enc: LcEncoding, n_cols: int) -> torch.Tensor:
-    n_rows, n_per_row, L = coeff_mat.shape
-    padded = coeff_mat.new_zeros((n_rows, n_cols, L))
-    padded[:, :n_per_row] = coeff_mat
-    return enc.encode(padded, n_nonzero=n_per_row)
+def default_device(device=None) -> torch.device:
+    """`device` if given, else the current CUDA card where there is one, else
+    the CPU: the entry points run on the card unless asked for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() \
+        else torch.device("cpu")
 
 
 def commit(coeffs, enc: LcEncoding, device=None) -> LcCommit:
     """lcpc-2d/src/lib.rs:651-700, on `device` (default: the device of a
-    coefficient tensor, else the CPU)."""
-    if device is None:
-        device = coeffs.device if isinstance(coeffs, torch.Tensor) else torch.device("cpu")
-    device = torch.device(device)
+    CUDA coefficient tensor, else :func:`default_device`)."""
+    if device is None and isinstance(coeffs, torch.Tensor) and coeffs.is_cuda:
+        device = coeffs.device
+    device = default_device(device)
     coeff_mat, (n_rows, n_per_row, n_cols) = _coeffs_to_matrix(coeffs, enc, device)
-    comm = _encode_matrix(coeff_mat, enc, n_cols)
+    comm = enc.encode(coeff_mat)
     hashes = merkle_tree_device(hash_columns(comm, enc.spec), n_cols)
     return LcCommit(coeffs=coeff_mat, comm=comm, n_rows=n_rows, n_cols=n_cols,
                     n_per_row=n_per_row, hashes=hashes)
@@ -436,16 +438,15 @@ def _verify_checks_fused(enc: LcEncoding, rows_mat: np.ndarray, rand_mats: torch
                          outer_mat: torch.Tensor, cols: np.ndarray, cols_to_open: list[int],
                          dev: torch.device):
     """The verifier's device work: re-encode the degree-test and eval rows
-    (K1), compare them at the opened positions with the column dot products,
-    and hash the column leaves (K2).  rows_mat is (ndt+1, width, L) with
-    width >= n_per_row for a malformed proof; the encode reads all `width`
-    coefficients, so an over-long row fails the degree check.
+    (the encoding's kernel: K1 for Ligero, K5 for Brakedown), compare them at
+    the opened positions with the column dot products, and hash the column
+    leaves (K2).  rows_mat is (ndt+1, width, L) with width >= n_per_row for a
+    malformed proof; the encode is given all `width` coefficients (Ligero
+    reads them all, so an over-long row fails the degree check; Brakedown
+    reads n_per_row, as the reference does).
     Returns (rand_ok (ndt, k), eval_ok (k,), leaves (k, 8))."""
     lf = limb_field(enc.spec)
-    n_rows_mat, width, L = rows_mat.shape
-    padded = torch.zeros((n_rows_mat, enc.n_cols, L), dtype=torch.int32, device=dev)
-    padded[:, :width] = torch.from_numpy(rows_mat).to(dev)
-    fft = enc.encode(padded, n_nonzero=width)
+    fft = enc.encode(torch.from_numpy(rows_mat).to(dev))
     sel = fft[:, torch.tensor(cols_to_open, dtype=torch.int64, device=dev)]   # (ndt+1, k, L)
     cols_dev = torch.from_numpy(cols.astype(np.int32)).to(dev)                 # (k, rows, L)
     d_rand = lf.dot(cols_dev[None], rand_mats[:, None], axis=2)               # (ndt, k, L)
@@ -499,8 +500,9 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
            proof: LcEvalProof, enc: LcEncoding, tr: Transcript, device=None) -> int:
     """lcpc-2d/src/lib.rs:862-982.  Returns the evaluation <inner, p_eval>.
 
-    The proof lives on the host; its checks run on `device` (default CPU)."""
-    dev = torch.device("cpu" if device is None else device)
+    The proof lives on the host; its checks run on `device` (default:
+    :func:`default_device`, the card where there is one)."""
+    dev = default_device(device)
     spec = enc.spec
     lf = limb_field(spec)
 

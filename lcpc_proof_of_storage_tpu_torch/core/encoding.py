@@ -12,7 +12,7 @@ import abc
 
 import torch
 
-from lcpc_proof_of_storage_tpu.fields.field import FieldSpec
+from ..fields.field import FieldSpec
 
 LABEL_DT = b"$l//DT"
 LABEL_PR = b"$l//PR"
@@ -43,10 +43,11 @@ class LcEncoding(abc.ABC):
     spec: FieldSpec
 
     @abc.abstractmethod
-    def encode(self, rows: torch.Tensor, n_nonzero: int | None = None) -> torch.Tensor:
-        """Encode rows: (batch, n_cols, L) with coefficients in the first
-        `n_nonzero` positions and zeros after -> (batch, n_cols, L), on the
-        rows' device."""
+    def encode(self, rows: torch.Tensor) -> torch.Tensor:
+        """Encode coefficient rows: (batch, width, L) with n_per_row <= width
+        <= n_cols (a verifier widens an over-long proof row) -> (batch, n_cols,
+        L) codewords, on the rows' device.  Each code decides how it reads
+        the coefficients past n_per_row."""
 
     @abc.abstractmethod
     def get_dims(self, length: int) -> tuple[int, int, int]:

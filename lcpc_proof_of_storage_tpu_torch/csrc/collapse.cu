@@ -9,39 +9,31 @@
 // accumulators.  A row adds less than L * 2^32 to a digit, so the sums stay
 // exact for any row count below 2^28 (the wrapper enforces 2^27): there is
 // no per-chunk row bound like the TPU kernel's 2048 rows and no partial sums
-// to combine.  The accumulators are then carry-normalised to 2L+2 16-bit
-// digits and reduced with the truncated Barrett of fields/limb.py
-// (barrett_reduce at width 2L+2, three conditional subtractions), so the
-// output is canonical and bit-equal to LimbField.dot.
+// to combine.  The accumulators are then carry-normalised and reduced by
+// barrett.cuh (the truncated Barrett of fields/limb.py at width 2L+2, shared
+// with K5), so the output is canonical and bit-equal to LimbField.dot.
 //
 // What bounds it on the H100: at the 2^20 ft255 prove the matrix is
 // (128, 8192, 16) limbs = 64 MB read once per call, 19 us at the data
-// sheet's 3.35 TB/s; the L^2 = 256 64-bit multiply-adds per row and
-// element are about 0.8 G integer operations for T = 2, so the kernel is
-// bound by integer throughput and by the 16384 threads it has to spread
-// over 132 SMs (measured on an NVIDIA H100 80GB HBM3 at 700 W: 0.16 ms in
-// the profiler, 0.23 ms per call with the launch).  Splitting the rows
-// over threads (a second reduction pass) is the next step.  Neighbouring
-// threads read neighbouring 64-byte elements of the same row, so the
-// matrix reads are coalesced.
+// sheet's 3.35 TB/s; counted in 32-bit words (W = 8), a row and element take
+// W^2 = 64 multiply-adds, 0.27 G integer operations for T = 2, 8 us at the
+// card's 33.5 T 32-bit integer operations/s.  So the bound is 19 us, by
+// bytes.  The kernel multiplies 16-bit digits (L^2 = 256 64-bit
+// multiply-adds a row and element, four times the word count) and has only
+// 16384 threads to spread over 132 SMs (measured on an NVIDIA H100 80GB HBM3
+// at 700 W: 0.16 ms in the profiler, 0.23 ms per call with the launch).
+// Splitting the rows over threads (a second reduction pass) is the next
+// step.  Neighbouring threads read neighbouring 64-byte elements of the same
+// row, so the matrix reads are coalesced.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "barrett.cuh"
 
 namespace {
 
 template <int L>
-struct Consts {
-    uint32_t p[L];
-    uint32_t mu[L + 4];  // floor(2^(16 (2L+2)) / p) in 16-bit limbs, zero padded
-};
-
-template <int L>
 __global__ void collapse(const int32_t* __restrict__ coeffs, const int32_t* __restrict__ tv,
-                         int32_t* __restrict__ out, int rows, int npr, int T, Consts<L> k) {
-    constexpr int M = 2 * L + 2;   // digits of the reduced-from value
-    constexpr int Q = M - L + 1;   // digits of q1 = floor(z / b^(L-1))
-    constexpr int MU = L + 4;
+                         int32_t* __restrict__ out, int rows, int npr, int T,
+                         BarrettConsts<L> k) {
     int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= (int64_t)T * npr) return;
     const int64_t ti = idx / npr, j = idx - ti * npr;
@@ -63,72 +55,7 @@ __global__ void collapse(const int32_t* __restrict__ coeffs, const int32_t* __re
 #pragma unroll
             for (int b = 0; b < L; ++b) acc[a + b] += (uint64_t)(tl[a] * mv[b]);
     }
-
-    // z: the exact sum as M canonical 16-bit digits
-    uint32_t z[M];
-    uint64_t carry = 0;
-#pragma unroll
-    for (int d = 0; d < M; ++d) {
-        uint64_t s = carry + (d < 2 * L ? acc[d] : 0);
-        z[d] = (uint32_t)(s & 0xFFFFu);
-        carry = s >> 16;
-    }
-
-    // q = floor(floor(z / b^(L-1)) * mu / b^(M-L+1))
-    uint64_t qw[Q + MU];
-#pragma unroll
-    for (int d = 0; d < Q + MU; ++d) qw[d] = 0;
-#pragma unroll
-    for (int a = 0; a < Q; ++a)
-#pragma unroll
-        for (int b = 0; b < MU; ++b) qw[a + b] += (uint64_t)(z[L - 1 + a] * k.mu[b]);
-    uint32_t q[MU];
-    carry = 0;
-#pragma unroll
-    for (int d = 0; d < Q + MU; ++d) {
-        uint64_t s = carry + qw[d];
-        if (d >= Q) q[d - Q] = (uint32_t)(s & 0xFFFFu);
-        carry = s >> 16;
-    }
-
-    // r = (z - q * p) mod b^(L+1), then r < 4p: three conditional subtractions
-    uint64_t qp[L + 1];
-#pragma unroll
-    for (int d = 0; d <= L; ++d) qp[d] = 0;
-#pragma unroll
-    for (int a = 0; a < MU; ++a)
-#pragma unroll
-        for (int b = 0; b < L; ++b)
-            if (a + b <= L) qp[a + b] += (uint64_t)(q[a] * k.p[b]);
-    uint32_t r[L + 1];
-    carry = 0;
-    int64_t borrow = 0;
-#pragma unroll
-    for (int d = 0; d <= L; ++d) {
-        uint64_t s = carry + qp[d];
-        carry = s >> 16;
-        int64_t v = (int64_t)z[d] - (int64_t)(s & 0xFFFFu) - borrow;
-        borrow = v < 0;
-        r[d] = (uint32_t)(v & 0xFFFF);
-    }
-#pragma unroll
-    for (int rep = 0; rep < 3; ++rep) {
-        uint32_t dd[L + 1];
-        borrow = 0;
-#pragma unroll
-        for (int d = 0; d <= L; ++d) {
-            int64_t v = (int64_t)r[d] - (d < L ? k.p[d] : 0u) - borrow;
-            borrow = v < 0;
-            dd[d] = (uint32_t)(v & 0xFFFF);
-        }
-        if (borrow == 0) {
-#pragma unroll
-            for (int d = 0; d <= L; ++d) r[d] = dd[d];
-        }
-    }
-    int32_t* o = out + idx * L;
-#pragma unroll
-    for (int d = 0; d < L; ++d) o[d] = (int32_t)r[d];
+    reduce_digit_sums<L>(acc, k, out + idx * L);
 }
 
 constexpr int kThreads = 128;
@@ -136,10 +63,8 @@ constexpr int kThreads = 128;
 template <int L>
 int launch(const int32_t* coeffs, const int32_t* t, int32_t* out, int rows, int npr, int T,
            const uint32_t* p_host, const uint32_t* mu_host, int mu_len, cudaStream_t st) {
-    if (mu_len > L + 4) return (int)cudaErrorInvalidValue;
-    Consts<L> k;
-    for (int i = 0; i < L; ++i) k.p[i] = p_host[i];
-    for (int i = 0; i < L + 4; ++i) k.mu[i] = i < mu_len ? mu_host[i] : 0u;
+    BarrettConsts<L> k;
+    if (!load_barrett_consts<L>(k, p_host, mu_host, mu_len)) return (int)cudaErrorInvalidValue;
     int64_t total = (int64_t)T * npr;
     unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
     collapse<L><<<blocks, kThreads, 0, st>>>(coeffs, t, out, rows, npr, T, k);

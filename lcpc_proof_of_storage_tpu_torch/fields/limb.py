@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from lcpc_proof_of_storage_tpu.fields.field import FieldSpec, ints_to_limbs
+from .field import FieldSpec, ints_to_limbs
 
 I64 = torch.int64
 MASK16 = 0xFFFF

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources are ``csrc/*.cu``: plain C entry points, compiled by ``nvcc``
-for sm_90a into one shared library and loaded with ``ctypes``.  Nothing is
-built or loaded when this module is imported: the first kernel call builds
-the library into ``build/torch_kernels/<hash of the sources>/`` at the root
-of the checkout (listed in ``.gitignore``), so a fresh checkout on a
-machine with a card builds everything on its first run.
+The sources are ``csrc/*.cu`` (with the shared ``csrc/*.cuh``): plain C
+entry points, compiled by ``nvcc`` for sm_90a into one shared library and
+loaded with ``ctypes``.  Nothing is built or loaded when this module is
+imported: the first kernel call builds the library into
+``build/torch_kernels/<hash of the sources>/`` at the root of the checkout
+(listed in ``.gitignore``), so a fresh checkout on a machine with a card
+builds everything on its first run.
 
 Every entry point returns the ``cudaGetLastError()`` code after its
 launches; :class:`Kernel` raises on a non-zero code and counts launches.
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 
@@ -51,21 +52,39 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into the library for the current sources, unless it
-    is already there; returns its path."""
+    is already there; returns its path.  One nvcc per source, all started
+    together, then one link; ptxas's register and spill report of every
+    kernel goes to ``nvcc.log`` beside the library."""
     out_dir = BUILD_ROOT / source_hash()
     so = out_dir / "liblcpc_kernels.so"
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        nvcc = _nvcc()
+        cus = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [tmp_dir / (s.stem + ".o") for s in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(cus, objs)]
+        errors, logs = [], []
+        for src, proc in zip(cus, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{out}")
+        (out_dir / "nvcc.log").write_text("".join(logs))
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp_so = tmp_dir / so.name
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_so), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp_so, so)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return so
 
 
@@ -116,9 +135,12 @@ BLAKE3_LEAVES = Kernel("lcpc_blake3_leaves", [P, P, I, I, I, I, P])
 BLAKE3_PARENTS = Kernel("lcpc_blake3_parents", [P, P, I, P])
 # csrc/collapse.cu: coeffs, t, out, rows, npr, T, L, p_host, mu_host, mu_len, stream
 COLLAPSE = Kernel("lcpc_collapse", [P, P, P, I, I, I, I, P, P, I, P])
+# csrc/expander.cu: x, idx, vals, counts, out, b, cols, rows, L, p_host, mu_host, mu_len,
+# stream
+EXPANDER = Kernel("lcpc_expander_matvec", [P, P, P, P, P, I, I, I, I, P, P, I, P])
 
 KERNELS = {"ntt": NTT_FORWARD, "blake3_leaves": BLAKE3_LEAVES,
-           "blake3_parents": BLAKE3_PARENTS, "collapse": COLLAPSE}
+           "blake3_parents": BLAKE3_PARENTS, "collapse": COLLAPSE, "expander": EXPANDER}
 
 
 def reset_launch_counts() -> None:

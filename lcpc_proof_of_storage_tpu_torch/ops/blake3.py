@@ -16,10 +16,9 @@ import functools
 import numpy as np
 import torch
 
-from lcpc_proof_of_storage_tpu.crypto import blake3_ref as b3
-from lcpc_proof_of_storage_tpu.fields.field import FieldSpec
-
 from .. import kernels
+from ..crypto import blake3_ref as b3
+from ..fields.field import FieldSpec
 
 I64 = torch.int64
 MASK32 = 0xFFFFFFFF

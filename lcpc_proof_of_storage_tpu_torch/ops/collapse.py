@@ -12,9 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lcpc_proof_of_storage_tpu.fields.field import FieldSpec
-
 from .. import kernels
+from ..fields.field import FieldSpec
 from ..fields.limb import limb_field
 
 MAX_ROWS = 1 << 27   # the kernel's 64-bit digit sums are exact below 2^28 rows

@@ -15,9 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lcpc_proof_of_storage_tpu.fields.field import FieldSpec, ints_to_limbs
-
 from .. import kernels
+from ..fields.field import FieldSpec, ints_to_limbs
 from ..fields.limb import LimbField, limb_field
 
 

@@ -1,7 +1,7 @@
 """Carry state from the JAX package into the port, through numpy.
 
-Duck-typed on the reference's objects, so this module imports neither JAX
-nor the reference's ``core``/``codes`` modules.
+Duck-typed on the reference's objects, so this module imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -9,13 +9,45 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..codes.brakedown import BrakedownEncoding
 from ..codes.ligero import LigeroEncoding
-from ..core.commit import LcColumn, LcCommit, LcEvalProof, _LimbRow
+from ..core.commit import LcColumn, LcCommit, LcEvalProof, _LimbRow, default_device
+from ..fields.field import FIELDS, FieldSpec
+from ..ops.expander import ExpanderEncoder, GatherMat, SdigSpec
+
+
+def field_from_reference(spec) -> FieldSpec:
+    """The port's FieldSpec of the reference's field of the same name."""
+    mine = FIELDS[spec.name]
+    if (mine.modulus, mine.generator, mine.endianness) != (
+            spec.modulus, spec.generator, spec.endianness):
+        raise ValueError(f"field {spec.name} differs between the packages")
+    return mine
 
 
 def encoding_from_reference(enc) -> LigeroEncoding:
     """Port encoding with the reference LigeroEncoding's field, dims and rate."""
-    return LigeroEncoding(enc.spec, enc.n_per_row, enc.n_cols, (enc.rho_num, enc.rho_den))
+    return LigeroEncoding(field_from_reference(enc.spec), enc.n_per_row, enc.n_cols,
+                          (enc.rho_num, enc.rho_den))
+
+
+def brakedown_encoding_from_reference(enc) -> BrakedownEncoding:
+    """Port encoding built from a reference BrakedownEncoding's own tables:
+    its ExpanderEncoder's numpy GatherMats (idx, vals) and Vandermonde
+    matrix, with no matgen run."""
+    ref = enc._enc
+
+    def level(gm) -> GatherMat:
+        return GatherMat(rows=gm.rows, cols=gm.cols, idx=np.asarray(gm.idx),
+                         vals=np.asarray(gm.vals))
+
+    code = ref.spec
+    return BrakedownEncoding(ExpanderEncoder(
+        field_from_reference(ref.field),
+        SdigSpec(code.alpha_num, code.alpha_den, code.beta_num, code.beta_den, code.r_num,
+                 code.r_den, code.baselen),
+        [level(gm) for gm in ref.precodes],
+        [level(gm) for gm in ref.postcodes], vander=np.asarray(ref.vander)))
 
 
 def _limbs(arr) -> torch.Tensor:
@@ -23,7 +55,9 @@ def _limbs(arr) -> torch.Tensor:
 
 
 def commit_from_reference(comm, device=None) -> LcCommit:
-    """Port commitment on `device` (default CPU) from a reference LcCommit."""
+    """Port commitment on `device` (default: the card where there is one)
+    from a reference LcCommit."""
+    device = default_device(device)
     hashes = np.array(comm.hashes, dtype=np.uint32).view(np.int32)
     return LcCommit(coeffs=_limbs(comm.coeffs).to(device), comm=_limbs(comm.comm).to(device),
                     n_rows=comm.n_rows, n_cols=comm.n_cols, n_per_row=comm.n_per_row,
@@ -41,7 +75,7 @@ def proof_from_reference(proof) -> LcEvalProof:
     for c in proof.columns:
         if c._col is None:
             columns.append(LcColumn(col_limbs=np.asarray(c._limbs, np.uint32),
-                                    spec=c._spec, path=c.path))
+                                    spec=field_from_reference(c._spec), path=c.path))
         else:
             columns.append(LcColumn(col=list(c._col), path=c.path))
     return LcEvalProof(n_cols=proof.n_cols, p_eval=_row(proof.p_eval),

@@ -2,7 +2,9 @@
 
 - the Ligero golden pins of tests/golden_vectors.json, reproduced by the
   port alone (same inputs as tests/test_golden_vectors.py);
-- roots and bincode proof bytes equal to the reference's on a seeded input;
+- roots, bincode proof bytes and transcript states equal to the reference's
+  on a seeded input, each package with its own transcript, serde and field
+  specs;
 - proofs cross-verify in both directions, a carried-over commitment proves
   to the same bytes, and tampered proofs fail with the reference's kind;
 - the reference faults the port does not copy.
@@ -20,11 +22,14 @@ import torch
 
 from lcpc_proof_of_storage_tpu.codes.ligero import LigeroEncoding as JaxLigero
 from lcpc_proof_of_storage_tpu.core import commit as jax_core
-from lcpc_proof_of_storage_tpu.crypto.transcript import Transcript
-from lcpc_proof_of_storage_tpu.fields.field import FT63, FT253_192, FT255
-from lcpc_proof_of_storage_tpu.utils import serde
+from lcpc_proof_of_storage_tpu.crypto.transcript import Transcript as JaxTranscript
+from lcpc_proof_of_storage_tpu.fields import field as jax_field
+from lcpc_proof_of_storage_tpu.utils import serde as jax_serde
 from lcpc_proof_of_storage_tpu_torch.codes.ligero import LigeroEncoding
 from lcpc_proof_of_storage_tpu_torch.core import commit as port
+from lcpc_proof_of_storage_tpu_torch.crypto.transcript import Transcript
+from lcpc_proof_of_storage_tpu_torch.fields import FT63, FT253_192, FT255
+from lcpc_proof_of_storage_tpu_torch.utils import serde
 from lcpc_proof_of_storage_tpu_torch.utils.carry import (commit_from_reference,
                                                          encoding_from_reference,
                                                          proof_from_reference)
@@ -35,10 +40,14 @@ GOLDEN = json.loads((Path(__file__).parent / "golden_vectors.json").read_text())
 X = 123456789
 
 
-def _tr(root: bytes) -> Transcript:
-    tr = Transcript(b"golden")
+def _tr(root: bytes, cls=Transcript):
+    tr = cls(b"golden")
     tr.append_message(b"polycommit", root)
     return tr
+
+
+def _jtr(root: bytes):
+    return _tr(root, JaxTranscript)
 
 
 def _tensors(spec, n_rows, n_per_row, x=X):
@@ -90,28 +99,30 @@ def test_golden_wide_field_pins(name, spec):
 @pytest.fixture(scope="module")
 def case():
     """One seeded ft63 input committed and proved by both packages."""
-    spec = FT63
+    spec, jspec = FT63, jax_field.FT63
     rng = np.random.default_rng(20261016)
     coeffs = [int(v) % spec.modulus for v in rng.integers(0, 1 << 63, size=500)]
-    jenc = JaxLigero.new_from_dims(16, 64, spec)
+    jenc = JaxLigero.new_from_dims(16, 64, jspec)
     jcomm = jax_core.commit(coeffs, jenc)
     root = jcomm.get_root().root
     outer, inner = _tensors(spec, jcomm.n_rows, jcomm.n_per_row)
-    jblob = serde.serialize_proof(jax_core.prove(jcomm, outer, jenc, _tr(root)), spec)
+    jtr = _jtr(root)
+    jblob = jax_serde.serialize_proof(jax_core.prove(jcomm, outer, jenc, jtr), jspec)
     enc = encoding_from_reference(jenc)
     comm = port.commit(coeffs, enc)
     value = sum(c * pow(X, i, spec.modulus) for i, c in enumerate(coeffs)) % spec.modulus
-    return dict(spec=spec, coeffs=coeffs, jenc=jenc, jcomm=jcomm, root=root, outer=outer,
-                inner=inner, jblob=jblob, enc=enc, comm=comm, value=value)
+    return dict(spec=spec, jspec=jspec, coeffs=coeffs, jenc=jenc, jcomm=jcomm, root=root,
+                outer=outer, inner=inner, jblob=jblob, jstate=jtr.state_bytes(), enc=enc,
+                comm=comm, value=value)
 
 
-def _port_proof(case):
-    return port.prove(case["comm"], case["outer"], case["enc"], _tr(case["root"]))
+def _port_proof(case, tr=None):
+    return port.prove(case["comm"], case["outer"], case["enc"], tr or _tr(case["root"]))
 
 
 def _jax_verify(case, proof):
     return jax_core.verify(case["root"], case["outer"], case["inner"], proof, case["jenc"],
-                           _tr(case["root"]))
+                           _jtr(case["root"]))
 
 
 def _port_verify(case, proof):
@@ -121,17 +132,21 @@ def _port_verify(case, proof):
 
 def test_root_and_proof_bytes_match_reference(case):
     assert case["comm"].get_root().root == case["root"]
-    assert serde.serialize_proof(_port_proof(case), case["spec"]) == case["jblob"]
+    tr = _tr(case["root"])
+    assert serde.serialize_proof(_port_proof(case, tr), case["spec"]) == case["jblob"]
+    assert tr.state_bytes() == case["jstate"]
 
 
 def test_reference_proof_verifies_under_port(case):
-    jproof = serde.deserialize_proof(case["jblob"], case["spec"])
+    jproof = jax_serde.deserialize_proof(case["jblob"], case["jspec"])
     assert _port_verify(case, proof_from_reference(jproof)) == case["value"]
+    blob_proof = serde.deserialize_proof(case["jblob"], case["spec"])
+    assert _port_verify(case, blob_proof) == case["value"]
 
 
 def test_port_proof_verifies_under_reference(case):
     blob = serde.serialize_proof(_port_proof(case), case["spec"])
-    assert _jax_verify(case, serde.deserialize_proof(blob, case["spec"])) == case["value"]
+    assert _jax_verify(case, jax_serde.deserialize_proof(blob, case["jspec"])) == case["value"]
 
 
 def test_carried_commitment_proves_to_same_bytes(case):
@@ -157,7 +172,7 @@ def test_tampered_proof_fails_like_reference(case, what):
     """The port raises the reference's VerifierError kind.  "long_row" is one
     extra nonzero coefficient on p_random_vec[0]: both reject it with
     ColumnDegree (the port re-encodes every coefficient of the widened row)."""
-    jproof = serde.deserialize_proof(case["jblob"], case["spec"])
+    jproof = jax_serde.deserialize_proof(case["jblob"], case["jspec"])
     _tamper(jproof, what, case["spec"])
     with pytest.raises(jax_core.VerifierError) as want:
         _jax_verify(case, jproof)
@@ -231,10 +246,11 @@ def test_packed_path_fast_path_checks_row_index(case):
     (512, FT63, (1, 2)), (1 << 12, FT255, (1, 4)), (1 << 20, FT255, (1, 4)),
     (1 << 21, FT255, (1, 4)), (100_000, FT253_192, (1, 2))])
 def test_dims_and_soundness_match_reference(length, spec, rho):
-    assert LigeroEncoding._get_dims(length, spec, rho) == JaxLigero._get_dims(length, spec, rho)
+    jspec = jax_field.FIELDS[spec.name]
+    assert LigeroEncoding._get_dims(length, spec, rho) == JaxLigero._get_dims(length, jspec, rho)
     dims = LigeroEncoding._get_dims(length, spec, rho)
     assert (LigeroEncoding._n_col_opens(rho), LigeroEncoding._n_degree_tests(dims[2], spec)) == \
-        (JaxLigero._n_col_opens(rho), JaxLigero._n_degree_tests(dims[2], spec))
+        (JaxLigero._n_col_opens(rho), JaxLigero._n_degree_tests(dims[2], jspec))
 
 
 def test_main_path_dims():
@@ -263,17 +279,30 @@ def test_commit_leaves_the_encoding_alone(case):
 
 
 def test_verify_runs_on_the_device_it_is_given(case, monkeypatch):
-    """verify encodes on the CPU unless given a device, whatever device the
-    encoding last encoded on (chip_smoke.py checks this after a CUDA commit)."""
+    """verify encodes on the device it is given, else on the card where
+    there is one and on the CPU here (chip_smoke.py checks on the card that
+    a default verify launches the encoding's kernel)."""
     seen = []
     encode = case["enc"].encode
 
-    def spy(rows, n_nonzero=None):
+    def spy(rows):
         seen.append(rows.device)
-        return encode(rows, n_nonzero)
+        return encode(rows)
 
     monkeypatch.setattr(case["enc"], "encode", spy)
     assert _port_verify(case, _port_proof(case)) == case["value"]
     assert port.verify(case["root"], case["outer"], case["inner"], _port_proof(case),
                        case["enc"], _tr(case["root"]), device="cpu") == case["value"]
     assert seen == [torch.device("cpu")] * 2
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """commit and verify run on the card where there is one, unless given
+    the CPU."""
+    from lcpc_proof_of_storage_tpu_torch.core.commit import default_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert default_device() == torch.device("cuda", 0)
+    assert default_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert default_device() == torch.device("cpu")

@@ -1,4 +1,4 @@
-"""The port imports torch and never JAX.
+"""The port imports torch and never JAX, and nothing of the JAX package.
 
 Checked in a subprocess: tests/conftest.py imports jax into this process.
 """
@@ -8,39 +8,75 @@ import sys
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent / "lcpc_proof_of_storage_tpu_torch"
+REFERENCE = "lcpc_proof_of_storage_tpu"
+SCRIPTS = (PKG.parent / "chip_smoke.py", PKG.parent / "chip_profile.py")
+
+DRIVE = """
+import importlib, sys
+for m in MODULES:
+    importlib.import_module(m)
+import lcpc_proof_of_storage_tpu_torch as p
+from lcpc_proof_of_storage_tpu_torch.fields import FT63
+
+def run(enc, n):
+    coeffs = [(i * 2654435761 + 12345) % FT63.modulus for i in range(n)]
+    comm = p.commit(coeffs, enc)
+    root = comm.get_root().root
+    x = 987654321
+    xr = pow(x, comm.n_per_row, FT63.modulus)
+    outer = [pow(xr, i, FT63.modulus) for i in range(comm.n_rows)]
+    inner = [pow(x, j, FT63.modulus) for j in range(comm.n_per_row)]
+    def tr():
+        t = p.Transcript(b"no-jax")
+        t.append_message(b"polycommit", root)
+        return t
+    proof = p.deserialize_proof(p.serialize_proof(p.prove(comm, outer, enc, tr()), FT63), FT63)
+    want = 0
+    for c in reversed(coeffs):
+        want = (want * x + c) % FT63.modulus
+    assert p.verify(root, outer, inner, proof, enc, tr()) == want
+
+run(p.LigeroEncoding.new_from_dims(16, 64, FT63), 300)
+run(p.BrakedownEncoding.new(400, seed=3, field=FT63), 400)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "lcpc_proof_of_storage_tpu"))
+assert not bad, bad
+assert "torch" in sys.modules
+"""
 
 
 def test_importing_the_port_loads_no_jax():
+    """Every port module imports, and a tiny Ligero and a tiny Brakedown
+    commit -> prove -> serde -> verify run on the CPU, with no jax* and no
+    lcpc_proof_of_storage_tpu module loaded."""
     modules = sorted(
         ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
-    code = ("import sys, importlib\n"
-            f"for m in {modules!r}: importlib.import_module(m)\n"
-            "import lcpc_proof_of_storage_tpu_torch as p\n"
-            "p.LigeroEncoding, p.commit, p.prove, p.verify\n"
-            "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
-            "assert 'torch' in sys.modules\n")
+    code = f"MODULES = {modules!r}\n" + DRIVE
     res = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=300)
     assert res.returncode == 0, res.stderr
 
 
+def _imports(src: Path):
+    """(line, top-level module) of every import statement in a source file."""
+    for line in src.read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]) and words[1:2]:
+            yield line, words[1].split(".")[0]
+
+
 def test_no_jax_import_in_sources():
-    for src in list(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py",
-                                          PKG.parent / "chip_profile.py"]:
-        for line in src.read_text().splitlines():
-            words = line.split()
-            assert words[:2] not in (["import", "jax"], ["from", "jax"]) and not (
-                words[:1] in (["import"], ["from"]) and words[1:2]
-                and words[1].startswith("jax.")), f"{src}: {line}"
+    for src in [*PKG.rglob("*.py"), *SCRIPTS]:
+        for line, top in _imports(src):
+            assert top not in ("jax", "jaxlib"), f"{src}: {line}"
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py and chip_profile.py reach the reference's host modules
-    only through the port's re-exports."""
-    for script in ("chip_smoke.py", "chip_profile.py"):
-        for line in (PKG.parent / script).read_text().splitlines():
-            words = line.split()
-            assert not (words[:1] in (["import"], ["from"]) and words[1:2]
-                        and words[1].split(".")[0] == "lcpc_proof_of_storage_tpu"), \
-                f"{script}: {line}"
+    """Neither the port nor chip_smoke.py / chip_profile.py import the JAX
+    package, not even its JAX-free modules."""
+    for src in [*PKG.rglob("*.py"), *SCRIPTS]:
+        for line, top in _imports(src):
+            assert top != REFERENCE, f"{src}: {line}"
+        assert f"{REFERENCE}." not in src.read_text().replace(
+            f"{REFERENCE}_torch", "").replace(f"{REFERENCE}/", ""), src
