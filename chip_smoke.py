@@ -13,12 +13,22 @@ the Ligero and Brakedown golden pins of tests/golden_vectors.json with every
 tensor on CUDA; verify's placement; the Ligero path (rho=1/4, ft255, 2^20:
 one commit, prove + verify at three points); the Brakedown path (SdigCode3,
 ft255, seed 0, 2^21: one commit, prove + verify at two points, proof bytes,
-root against the plain versions'); one Brakedown commit, prove and verify
-at 2^25; timings.  Each path runs with every kernel's launch count set to 0
-just before it and read just after.  The script prints a JSON line of
-per-kernel results and, last, {"ok": true, "device": {...}}.  Any failure
-exits non-zero without that line, as does a machine with no CUDA device or
-a directory without the port.  It imports nothing of JAX.
+root against the plain versions', the streamed root); one Brakedown commit,
+prove and verify at 2^25, and its streamed commit and proof; the streamed
+kernels (K3p on five fields, chunk CVs and merge on three) against their
+plain versions and the synthetic pin of tests/test_torch_streamed.py on
+CUDA; the streamed Ligero ft255 path at 2^25 in all six keep_comm x
+device_coeffs modes against the one-shot root and proof bytes, at 2^28
+with 16-bit coefficients and encoded matrix on the card, and at 2^29 with
+the coefficients in host memory and no encoded matrix kept (commit, prove,
+serialize, verify, a tampered proof, the proof length, the synthetic
+root); at each of those three sizes K1 against its plain version at that
+path's n (2^18, 2^19, 2^20); timings, peak device memory and host RSS.
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after.  The script prints a JSON line of per-kernel results
+and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
+without that line, as does a machine with no CUDA device or a directory
+without the port.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +54,11 @@ BD_PROOF_LEN = 16175624
 BD_LOG2_BIG = 25
 BD_DIMS_BIG = (143, 235172)
 BD_PROOF_LEN_BIG = 50336784
+ST_LOG2 = 29              # the streamed tentpole: Ligero rho=1/4 ft255, host coefficients
+ST_DIMS = (2048, 262144, 1048576)
+ST_LOG2_DEVICE = 28       # 16-bit coefficients and encoded matrix on the card
+ST_LOG2_MODES = 25        # every keep_comm x device_coeffs mode against the one-shot path
+ST_MODES_BATCH = 100      # rows a batch: does not divide the 512 rows at 2^25
 # the least time the card could take: bytes over its memory rate, 32-bit
 # integer operations over its peak integer rate.  NVIDIA H100 SXM data sheet
 # (700 W): 3.35 TB/s, and 67 T float32 operations/s outside the tensor cores
@@ -553,8 +568,8 @@ def brakedown_path(res: Results, dev, card: str) -> None:
     versions'; launch counts; timings."""
     import numpy as np
     import torch
-    from lcpc_proof_of_storage_tpu_torch import (BrakedownEncoding, commit, prove,
-                                                 serialize_proof, verify)
+    from lcpc_proof_of_storage_tpu_torch import (BrakedownEncoding, commit, commit_streamed,
+                                                 prove, serialize_proof, verify)
     from lcpc_proof_of_storage_tpu_torch.fields import FT255, limbs_to_ints
     from lcpc_proof_of_storage_tpu_torch.ops import expander as ex
 
@@ -613,6 +628,18 @@ def brakedown_path(res: Results, dev, card: str) -> None:
     if want != root:
         raise AssertionError(f"root {root.hex()} differs from the plain versions' {want.hex()}")
     say("brakedown: root equals the root the plain versions compute on the card")
+    st = {}
+    st_launches = launches_of(lambda: st.update(root=commit_streamed(
+        coeffs_np, enc, keep_comm=False, device_coeffs=False, device=dev).get_root().root))
+    res.add_launches(f"brakedown_streamed_2^{BD_LOG2}", st_launches)
+    if st["root"] != root:
+        raise AssertionError(f"streamed root {st['root'].hex()} differs from {root.hex()}")
+    # a single chunk a column: the one-shot branch, one encode and the leaves kernel
+    if (st_launches["expander"] != n_levels or not st_launches["blake3_leaves"]
+            or st_launches["blake3_chunk_cvs"] or st_launches["ntt"]):
+        raise AssertionError(f"Brakedown 2^{BD_LOG2} streamed commit launches {st_launches}")
+    say(f"brakedown: the streamed commit (host coefficients; {n_rows} rows, a single chunk a "
+        f"column, so its one-shot branch) gives the same root; launches {st_launches}")
 
     outer, inner = point_tensors(points[0], n_rows, n_per_row, p)
     proof = prove(comm, outer, enc, transcript(root))
@@ -645,8 +672,10 @@ def brakedown_big(res: Results, dev, card: str) -> None:
     with the launch counts set to 0 just before and read just after; the
     evaluation is computed with plain limb arithmetic on the card."""
     import torch
-    from lcpc_proof_of_storage_tpu_torch import (BrakedownEncoding, commit, prove,
-                                                 serialize_proof, verify)
+    from lcpc_proof_of_storage_tpu_torch import (BrakedownEncoding, commit, commit_streamed,
+                                                 prove, serialize_proof, verify)
+    from lcpc_proof_of_storage_tpu_torch.core.storage import even_row_batches
+    from lcpc_proof_of_storage_tpu_torch.core.streamed import _row_batches
     from lcpc_proof_of_storage_tpu_torch.fields import FT255, limbs_to_ints
     from lcpc_proof_of_storage_tpu_torch.fields.limb import limb_field
 
@@ -680,14 +709,14 @@ def brakedown_big(res: Results, dev, card: str) -> None:
         t1 = time.perf_counter()
         proof = prove(comm, outer, enc, transcript(root))
         t2 = time.perf_counter()
-        out["len"] = len(serialize_proof(proof, spec))
+        out["blob"] = serialize_proof(proof, spec)
         t3 = time.perf_counter()
         out["value"] = verify(root, outer, inner, proof, enc, transcript(root), device=dev)
         torch.cuda.synchronize()
         out["t"] = (t0, t1, t2, t3, time.perf_counter())
 
     launches = launches_of(run)
-    comm, root, blob_len, value = out["comm"], out["root"], out["len"], out["value"]
+    comm, root, blob_len, value = out["comm"], out["root"], len(out["blob"]), out["value"]
     t0, t1, t2, t3, t4 = out["t"]
     n_levels = len(enc.encoder.pre) + len(enc.encoder.post)
     missing = [k for k in ("blake3_leaves", "blake3_parents", "collapse") if launches[k] == 0]
@@ -715,6 +744,519 @@ def brakedown_big(res: Results, dev, card: str) -> None:
         f"{(t4 - t3) * 1e3:.1f} ms (one run each); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # the streamed commit of the same coefficients: 143 rows are five chunks
+    # a column, hashed over the batches of 31, 32, 32, 32 and 16 rows; its
+    # prove collapses the coefficients on the card (K3) and re-encodes the
+    # rows for the opened columns
+    so = {}
+
+    def run_streamed():
+        t0 = time.perf_counter()
+        st = commit_streamed(coeffs, enc, target_batch_rows=32, keep_comm=False, device=dev)
+        so["root"] = st.get_root().root
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        so["blob"] = serialize_proof(prove(st, outer, enc, transcript(root)), spec)
+        so["t"] = (t1 - t0, time.perf_counter() - t1)
+
+    st_launches = launches_of(run_streamed)
+    res.add_launches(f"brakedown_streamed_2^{BD_LOG2_BIG}", st_launches)
+    if so["root"] != root or so["blob"] != out["blob"]:
+        raise AssertionError(f"Brakedown 2^{BD_LOG2_BIG} streamed: root {so['root'] == root}, "
+                             f"proof bytes {so['blob'] == out['blob']}")
+    encodes = (len(_row_batches(n_rows, spec.repr_bytes, 32))
+               + len(even_row_batches(n_rows, n_cols * spec.num_limbs16 * 4, None)))
+    missing = [k for k in ("blake3_chunk_cvs", "blake3_merge_cvs", "blake3_parents", "collapse")
+               if st_launches[k] == 0]
+    if (missing or st_launches["expander"] != n_levels * encodes or st_launches["ntt"]
+            or st_launches["blake3_leaves"] or st_launches["collapse_acc"]):
+        raise AssertionError(f"Brakedown 2^{BD_LOG2_BIG} streamed launches {st_launches}: "
+                             f"expected {n_levels * encodes} expander ({encodes} batch encodes), "
+                             f"some of each of {missing}, no ntt, leaves or K3p")
+    say(f"brakedown 2^{BD_LOG2_BIG}: the streamed commit (batches of 32 rows, five chunks a "
+        f"column, no encoded matrix kept) gives the same root in {so['t'][0] * 1e3:.1f} ms, and "
+        f"its proof (columns re-encoded) the same {len(so['blob'])} bytes in "
+        f"{so['t'][1] * 1e3:.1f} ms; launches {st_launches}")
+
+
+# --------------------------------------------------------------------------
+# the streamed (out-of-core) commit and prove
+# --------------------------------------------------------------------------
+
+def host_rss_gib() -> float:
+    """Peak resident memory of this process, GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def device_memory_line(dev) -> str:
+    import torch
+    total = torch.cuda.get_device_properties(dev).total_memory
+    peak = torch.cuda.max_memory_allocated(dev)
+    if peak >= total:
+        raise AssertionError(f"peak device memory {peak} bytes reaches the card's {total}")
+    return (f"peak device memory {peak / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB, "
+            f"peak host RSS {host_rss_gib():.2f} GiB")
+
+
+def free_device(dev) -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def check_ntt_at(res: Results, enc, rows16, what: str) -> None:
+    """K1, through the Ligero encode the streamed path calls, on (b, n_per_row,
+    L) 16-bit coefficient rows of that path, against ntt_plain on the card at
+    the path's n, bit-exact."""
+    from lcpc_proof_of_storage_tpu_torch.fields.limb import widen_limbs
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    rows = widen_limbs(rows16)
+    b, npr, L = rows.shape
+    padded = rows.new_zeros((b, enc.n_cols, L))
+    padded[:, :npr] = rows
+    res.compare("ntt", f"{what}: {b} rows, n={enc.n_cols} n_nonzero={npr}", enc.encode(rows),
+                ntt.ntt_plain(padded, enc.spec, npr, enc.tables(rows.device)))
+
+
+def synthetic_constants() -> dict:
+    """SYNTHETIC_SEED, SYNTHETIC_LENGTH and SYNTHETIC_PIN of
+    tests/test_torch_streamed.py, read without importing it (it imports JAX)."""
+    import ast
+    tree = ast.parse((ROOT / "tests" / "test_torch_streamed.py").read_text())
+    return {t.id: ast.literal_eval(node.value) for node in tree.body
+            if isinstance(node, ast.Assign) for t in node.targets
+            if isinstance(t, ast.Name) and t.id.startswith("SYNTHETIC_")}
+
+
+def check_streamed_kernels(res: Results, dev) -> None:
+    """K3p (16-bit coefficients and an accumulator) on five fields at more
+    than 2048 rows and ragged npr, K3 on 16-bit coefficients, and the chunk-CV
+    and merge entries over every batch (first, interior, last) of ft63,
+    ft255 and ft253_192 matrices, each against its plain version; the
+    port's synthetic pin on CUDA."""
+    import numpy as np
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import LigeroEncoding
+    from lcpc_proof_of_storage_tpu_torch.core import streamed
+    from lcpc_proof_of_storage_tpu_torch.fields import FT63, FT127, FT191, FT253_192, FT255
+    from lcpc_proof_of_storage_tpu_torch.fields.limb import narrow_limbs
+    from lcpc_proof_of_storage_tpu_torch.ops import blake3, collapse
+
+    rng = np.random.default_rng(SEED + 3)
+    for spec, rows, npr in ((FT63, 3000, 77), (FT127, 2100, 300), (FT191, 2049, 129),
+                            (FT255, 2500, 191), (FT253_192, 2200, 100)):
+        c16 = narrow_limbs(torch.from_numpy(random_limbs(rng, (rows, npr), spec)).to(dev))
+        t = torch.from_numpy(random_limbs(rng, (2, rows), spec)).to(dev)
+        acc = torch.from_numpy(random_limbs(rng, (2, npr), spec)).to(dev)
+        res.compare("collapse_acc", f"{spec.name} 16-bit rows={rows} npr={npr} T=2 + acc",
+                    collapse.collapse(c16, t, spec, acc=acc),
+                    collapse.collapse_plain(c16, t, spec, acc=acc))
+        if spec is FT255:
+            res.compare("collapse", f"{spec.name} 16-bit rows={rows} npr={npr} T=2",
+                        collapse.collapse(c16, t, spec), collapse.collapse_plain(c16, t, spec))
+
+    for spec, rows, target in ((FT63, 700, 200), (FT255, 200, 70), (FT253_192, 150, 40)):
+        n_cols = 1000
+        m = torch.from_numpy(random_limbs(rng, (rows, n_cols), spec)).to(dev)
+        total = -(-(32 + rows * spec.repr_bytes) // 1024)
+        got = torch.full((n_cols, total, 8), -1, dtype=torch.int32, device=dev)
+        want = got.clone()
+        batches = streamed._row_batches(rows, spec.repr_bytes, target)
+        chunk0 = 0
+        for r0, r1 in batches:
+            blake3.chunk_cvs(m[r0:r1].contiguous(), spec, got, chunk0, r0 == 0)
+            blake3.chunk_cvs_plain(m[r0:r1].contiguous(), spec, want, chunk0, r0 == 0)
+            chunk0 += blake3.batch_chunks(r1 - r0, spec, r0 == 0)[0]
+        res.compare("blake3_chunk_cvs", f"{spec.name} {rows} rows in batches {batches} "
+                    f"({total} chunks a column)", got, want)
+        leaves = blake3.merge_cvs(got)
+        res.compare("blake3_merge_cvs", f"{spec.name} {total} chunks of {n_cols} columns",
+                    leaves, blake3.merge_cvs_plain(want))
+        res.compare("blake3_merge_cvs", f"{spec.name} merged leaves against the one-shot leaves",
+                    leaves, blake3.hash_columns_plain(m, spec))
+
+    syn = synthetic_constants()
+    enc = LigeroEncoding(FT63, 4, 16)
+    comm = streamed.commit_streamed(
+        streamed.SyntheticCoeffs(syn["SYNTHETIC_LENGTH"], seed=syn["SYNTHETIC_SEED"]), enc,
+        target_batch_rows=100, keep_comm=False, device=dev)
+    if comm.get_root().root.hex() != syn["SYNTHETIC_PIN"]:
+        raise AssertionError(f"synthetic root {comm.get_root().root.hex()} on CUDA, pin "
+                             f"{syn['SYNTHETIC_PIN']} on the CPU")
+    say(f"streamed: the synthetic pin of tests/test_torch_streamed.py reproduced on CUDA "
+        f"({syn['SYNTHETIC_PIN'][:16]}...)")
+
+
+def streamed_modes(res: Results, dev, card: str) -> None:
+    """Ligero rho=1/4 ft255 at 2^25: every keep_comm x device_coeffs mode of
+    the streamed commit, in batches of ST_MODES_BATCH rows, gives the
+    one-shot root, and its proof the one-shot proof's bytes; one verified."""
+    import numpy as np
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import (LigeroEncoding, commit, prove, serialize_proof,
+                                                 verify)
+    from lcpc_proof_of_storage_tpu_torch.core import streamed
+    from lcpc_proof_of_storage_tpu_torch.fields import FT255
+
+    spec = FT255
+    length = 1 << ST_LOG2_MODES
+    enc = LigeroEncoding.new(length, spec, rho=(1, 4))
+    n_rows, n_per_row, n_cols = enc.get_dims(length)
+    coeffs = streamed.materialize(streamed.SyntheticCoeffs(length, seed=SEED + 2), spec, dev)
+    outer, inner = point_tensors(0xC0FFEE, n_rows, n_per_row, spec.modulus)
+    one = commit(coeffs, enc, device=dev)
+    root = one.get_root().root
+    want = serialize_proof(prove(one, outer, enc, transcript(root)), spec)
+    del one
+    free_device(dev)
+    host = coeffs.cpu().numpy().view(np.uint16)
+    out = {}
+
+    def run():
+        for device_coeffs in (True, False):
+            for keep_comm in (True, False, "device"):
+                t0 = time.perf_counter()
+                comm = streamed.commit_streamed(coeffs if device_coeffs else host, enc,
+                                                target_batch_rows=ST_MODES_BATCH,
+                                                keep_comm=keep_comm,
+                                                device_coeffs=device_coeffs, device=dev)
+                got_root = comm.get_root().root
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                proof = prove(comm, outer, enc, transcript(root))
+                t2 = time.perf_counter()
+                blob = serialize_proof(proof, spec)
+                if got_root != root or blob != want:
+                    raise AssertionError(f"streamed 2^{ST_LOG2_MODES} keep_comm={keep_comm} "
+                                         f"device_coeffs={device_coeffs}: root "
+                                         f"{got_root == root}, proof bytes {blob == want}")
+                out[(device_coeffs, keep_comm)] = (t1 - t0, t2 - t1)
+                if (device_coeffs, keep_comm) == (False, False):
+                    out["value"] = verify(root, outer, inner, proof, enc, transcript(root),
+                                          device=dev)
+                del comm, proof
+
+    launches = launches_of(run)
+    res.add_launches(f"streamed_modes_2^{ST_LOG2_MODES}", launches)
+    for k in ("ntt", "blake3_chunk_cvs", "blake3_merge_cvs", "collapse", "collapse_acc"):
+        if launches[k] == 0:
+            raise AssertionError(f"{k} never launched by the 2^{ST_LOG2_MODES} streamed modes")
+    if out["value"] != row_evaluation(coeffs.reshape(n_rows, n_per_row, -1), outer, inner,
+                                      spec, dev):
+        raise AssertionError(f"streamed 2^{ST_LOG2_MODES}: verify returned a wrong evaluation")
+    say(f"streamed 2^{ST_LOG2_MODES}: dims ({n_rows}, {n_per_row}, {n_cols}), batches "
+        f"{streamed._row_batches(n_rows, spec.repr_bytes, ST_MODES_BATCH)}; all six "
+        f"keep_comm x device_coeffs modes give the one-shot root {root.hex()[:16]}... and "
+        f"the one-shot proof's {len(want)} bytes; the host-coefficient, no-matrix proof "
+        f"verified with the evaluation of the plain row dots; launches {launches}")
+    for (dc, kc), (tc, tp) in ((k, v) for k, v in out.items() if k != "value"):
+        say(f"time [{card}]: streamed 2^{ST_LOG2_MODES} device_coeffs={dc} keep_comm={kc}: "
+            f"commit {tc * 1e3:.1f} ms, prove {tp * 1e3:.1f} ms (one run each)")
+    check_ntt_at(res, enc, coeffs.reshape(n_rows, n_per_row, -1)[:2],
+                 f"the streamed 2^{ST_LOG2_MODES} rows")
+    del coeffs, host
+    free_device(dev)
+
+
+def row_evaluation(coeffs16, outer, inner, spec, dev, rows_a_step: int = 16) -> int:
+    """sum_i outer[i] * <row i, inner> mod p over (n_rows, n_per_row, L)
+    16-bit coefficients on the card, with the plain limb dot."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch.fields import limbs_to_ints
+    from lcpc_proof_of_storage_tpu_torch.fields.limb import limb_field, widen_limbs
+    lf = limb_field(spec)
+    inner_t = lf.array(inner, dev)
+    evals = torch.cat([lf.dot(widen_limbs(coeffs16[i:i + rows_a_step]), inner_t[None], axis=1)
+                       for i in range(0, coeffs16.shape[0], rows_a_step)])
+    rows = limbs_to_ints(evals.cpu().numpy())
+    return sum(o * r for o, r in zip(outer, rows)) % spec.modulus
+
+
+def streamed_device(res: Results, dev, card: str) -> None:
+    """Ligero rho=1/4 ft255 at 2^28 with 16-bit coefficients on the card and
+    keep_comm="device" (the encoded matrix kept there as 16-bit limbs):
+    commit, prove, verify, the evaluation against the plain row dots."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import (LigeroEncoding, prove, serialize_proof,
+                                                 verify)
+    from lcpc_proof_of_storage_tpu_torch.core import streamed
+    from lcpc_proof_of_storage_tpu_torch.fields import FT255
+    from lcpc_proof_of_storage_tpu_torch.utils.serde import serialized_proof_len
+
+    spec = FT255
+    length = 1 << ST_LOG2_DEVICE
+    t0 = time.perf_counter()
+    enc = LigeroEncoding.new(length, spec, rho=(1, 4))
+    enc.tables(dev)
+    t_tables = time.perf_counter() - t0
+    n_rows, n_per_row, n_cols = enc.get_dims(length)
+    coeffs = streamed.materialize(streamed.SyntheticCoeffs(length, seed=SEED + 28), spec, dev)
+    outer, inner = point_tensors(0xBADC0DE, n_rows, n_per_row, spec.modulus)
+    free_device(dev)
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        comm = out["comm"] = streamed.commit_streamed(coeffs, enc, keep_comm="device",
+                                                      device=dev)
+        root = out["root"] = comm.get_root().root
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        proof = prove(comm, outer, enc, transcript(root))
+        t2 = time.perf_counter()
+        out["len"] = len(serialize_proof(proof, spec))
+        t3 = time.perf_counter()
+        out["value"] = verify(root, outer, inner, proof, enc, transcript(root), device=dev)
+        torch.cuda.synchronize()
+        out["t"] = (t0, t1, t2, t3, time.perf_counter())
+
+    launches = launches_of(run)
+    comm = out["comm"]
+    mem = device_memory_line(dev)
+    res.add_launches(f"streamed_device_2^{ST_LOG2_DEVICE}", launches)
+    missing = [k for k in ("ntt", "blake3_chunk_cvs", "blake3_merge_cvs", "blake3_parents",
+                           "blake3_leaves", "collapse") if launches[k] == 0]
+    if missing or launches["collapse_acc"]:
+        raise AssertionError(f"streamed 2^{ST_LOG2_DEVICE} launches {launches}")
+    if comm.comm.dtype != torch.int16 or comm.coeffs.dtype != torch.int16:
+        raise AssertionError("the 2^28 commitment does not keep 16-bit limbs on the card")
+    want_len = serialized_proof_len(n_rows, n_per_row, n_cols, enc.get_n_degree_tests(),
+                                    enc.get_n_col_opens(), spec)
+    want = row_evaluation(coeffs.reshape(n_rows, n_per_row, -1), outer, inner, spec, dev)
+    t0, t1, t2, t3, t4 = out["t"]
+    say(f"streamed 2^{ST_LOG2_DEVICE}: dims ({n_rows}, {n_per_row}, {n_cols}), 16-bit "
+        f"coefficients and encoded matrix ({comm.comm.numel() * 2 / 1e9:.1f} GB) on the card; "
+        f"root {out['root'].hex()[:16]}...; proof {out['len']} bytes (layout {want_len}); "
+        f"verify returned {'the' if out['value'] == want else 'a WRONG'} evaluation; "
+        f"launches {launches}")
+    if out["len"] != want_len or out["value"] != want:
+        raise AssertionError(f"streamed 2^{ST_LOG2_DEVICE}: proof length or evaluation wrong")
+    say(f"time [{card}]: streamed 2^{ST_LOG2_DEVICE} keep_comm=device: commit "
+        f"{(t1 - t0) * 1e3:.1f} ms, prove {(t2 - t1) * 1e3:.1f} ms, serialize "
+        f"{(t3 - t2) * 1e3:.1f} ms, verify {(t4 - t3) * 1e3:.1f} ms (one run each); NTT "
+        f"tables {t_tables:.2f} s on the host (set-up); {mem}")
+    del comm, out
+    free_device(dev)
+    check_ntt_at(res, enc, coeffs.reshape(n_rows, n_per_row, -1)[:2],
+                 f"the streamed 2^{ST_LOG2_DEVICE} rows")
+    del coeffs
+    free_device(dev)
+
+
+def streamed_host(res: Results, dev, card: str) -> None:
+    """The Rust reference's largest point, Ligero rho=1/4 ft255 2^29: 16-bit
+    coefficients in host memory (device_coeffs=False) and no encoded matrix
+    kept (keep_comm=False); commit, prove (K3p over row batches, then the
+    re-encode of the opened columns), serialize, verify; a proof with one
+    limb changed is rejected; the proof length is the bincode layout's; a
+    SyntheticCoeffs commit of the same seed gives the same root.  Then K3p,
+    the chunk-CV and merge entries are timed at this path's shapes."""
+    import numpy as np
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import (LigeroEncoding, VerifierError, prove,
+                                                 serialize_proof, verify)
+    from lcpc_proof_of_storage_tpu_torch.core import streamed
+    from lcpc_proof_of_storage_tpu_torch.core.storage import even_row_batches
+    from lcpc_proof_of_storage_tpu_torch.fields import FT255
+    from lcpc_proof_of_storage_tpu_torch.fields.limb import limb_field
+    from lcpc_proof_of_storage_tpu_torch.ops import blake3, collapse
+    from lcpc_proof_of_storage_tpu_torch.utils.serde import serialized_proof_len
+
+    spec = FT255
+    L = spec.num_limbs16
+    length = 1 << ST_LOG2
+    t0 = time.perf_counter()
+    enc = LigeroEncoding.new(length, spec, rho=(1, 4))
+    enc.tables(dev)
+    t_tables = time.perf_counter() - t0
+    dims = enc.get_dims(length)
+    if dims != ST_DIMS:
+        raise AssertionError(f"Ligero 2^{ST_LOG2} dims {dims}, not {ST_DIMS}")
+    n_rows, n_per_row, n_cols = dims
+    src = streamed.SyntheticCoeffs(length, seed=SEED + 29)
+    t0 = time.perf_counter()
+    host = streamed.materialize(src, spec, dev).cpu().numpy().view(np.uint16)
+    t_gen = time.perf_counter() - t0
+    free_device(dev)
+    outer, inner = point_tensors(0x5EED, n_rows, n_per_row, spec.modulus)
+    say(f"streamed 2^{ST_LOG2}: dims {dims}, {enc.get_n_degree_tests()} degree test(s), "
+        f"{enc.get_n_col_opens()} column openings; NTT tables {t_tables:.2f} s on the host; "
+        f"{host.nbytes / 1e9:.1f} GB of 16-bit coefficients made on the card and copied to "
+        f"host memory in {t_gen:.1f} s (set-up)")
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        comm = out["comm"] = streamed.commit_streamed(host, enc, keep_comm=False,
+                                                      device_coeffs=False, device=dev)
+        root = out["root"] = comm.get_root().root
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        proof = out["proof"] = prove(comm, outer, enc, transcript(root))
+        t2 = time.perf_counter()
+        out["len"] = len(serialize_proof(proof, spec))
+        t3 = time.perf_counter()
+        out["value"] = verify(root, outer, inner, proof, enc, transcript(root), device=dev)
+        torch.cuda.synchronize()
+        out["t"] = (t0, t1, t2, t3, time.perf_counter())
+
+    launches = launches_of(run)
+    mem = device_memory_line(dev)
+    res.add_launches(f"streamed_host_2^{ST_LOG2}", launches)
+    missing = [k for k in ("ntt", "blake3_chunk_cvs", "blake3_merge_cvs", "blake3_parents",
+                           "blake3_leaves", "collapse_acc") if launches[k] == 0]
+    if missing or launches["collapse"]:
+        raise AssertionError(f"streamed 2^{ST_LOG2} launches {launches}")
+    root, proof = out["root"], out["proof"]
+    want_len = serialized_proof_len(n_rows, n_per_row, n_cols, enc.get_n_degree_tests(),
+                                    enc.get_n_col_opens(), spec)
+    if out["len"] != want_len:
+        raise AssertionError(f"2^{ST_LOG2} proof of {out['len']} bytes, layout gives {want_len}")
+    # the evaluation: <inner, p_eval> (verify returns it only after every check held)
+    p_eval = sum(a * b for a, b in zip(inner, proof.p_eval)) % spec.modulus
+    if out["value"] != p_eval:
+        raise AssertionError(f"2^{ST_LOG2} verify returned a wrong evaluation")
+    t0, t1, t2, t3, t4 = out["t"]
+    say(f"streamed 2^{ST_LOG2}: root {root.hex()}; proof {out['len']} bytes (bincode layout "
+        f"{want_len}) verified; launches {launches}")
+    say(f"time [{card}]: streamed 2^{ST_LOG2} host coefficients, keep_comm=False: commit "
+        f"{t1 - t0:.3f} s, prove {t2 - t1:.3f} s, serialize {t3 - t2:.3f} s, verify "
+        f"{t4 - t3:.3f} s (one run each); {mem}")
+
+    # prove's two passes over the host coefficients, timed alone: the
+    # commitment's store already holds its pinned staging pair (allocated
+    # by the commit, grown by the prove's first collapse batch)
+    comm = out["comm"]
+    rows = comm.coeff_rows
+    t_vec = torch.stack([limb_field(spec).array(outer)] * 2).to(dev)
+    n_batches = len(even_row_batches(n_rows, n_per_row * L * 2, None))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows.collapse(t_vec, spec)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rows.open_columns(enc, n_cols, list(range(0, n_cols, n_cols // 189))[:189])
+    t2 = time.perf_counter()
+    say(f"time [{card}]: streamed 2^{ST_LOG2} prove's passes alone: collapse (K3p over "
+        f"{n_batches} uploaded batches) {t1 - t0:.3f} s ({host.nbytes / (t1 - t0) / 1e9:.2f} "
+        f"GB/s of coefficients, the staging already allocated), opened columns (2048 rows "
+        f"uploaded and re-encoded) {t2 - t1:.3f} s; staging held by the commitment "
+        f"{rows.staging_bytes() / 2**30:.2f} GiB pinned")
+    del comm, rows, t_vec
+
+    # the upload's legs on one collapse batch (1 GiB of 16-bit rows): a
+    # fresh pinned allocation, the host copy into it, the copy to the card
+    batch16 = torch.from_numpy(host.reshape(n_rows, n_per_row, L)[:128].view(np.int16))
+    t0 = time.perf_counter()
+    pinned = torch.empty(batch16.shape, dtype=torch.int16, pin_memory=True)
+    t1 = time.perf_counter()
+    memcpy = []
+    for _ in range(2):
+        t2 = time.perf_counter()
+        pinned.copy_(batch16)
+        memcpy.append(time.perf_counter() - t2)
+    h2d = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        on_card = pinned.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        h2d.append(time.perf_counter() - t2)
+    gb = batch16.numel() * 2 / 1e9
+    say(f"time [{card}]: streamed 2^{ST_LOG2} upload legs for {gb:.2f} GB: pinned "
+        f"allocation {(t1 - t0) * 1e3:.1f} ms, host copy into it "
+        f"{'/'.join(f'{t * 1e3:.1f}' for t in memcpy)} ms "
+        f"({gb / min(memcpy):.2f} GB/s), pinned to card "
+        f"{'/'.join(f'{t * 1e3:.1f}' for t in h2d)} ms ({gb / min(h2d):.2f} GB/s)")
+    del batch16, pinned, on_card
+    check_ntt_at(res, enc, torch.from_numpy(host.reshape(n_rows, n_per_row, L)[:2]
+                                            .view(np.int16)).to(dev),
+                 f"the streamed 2^{ST_LOG2} rows")
+    free_device(dev)
+
+    col = proof.columns[0]
+    col._limbs = col._limbs.copy()
+    col._limbs[0, 0] ^= 1
+    try:
+        verify(root, outer, inner, proof, enc, transcript(root), device=dev)
+    except VerifierError as e:
+        say(f"streamed 2^{ST_LOG2}: a proof with one column limb changed is rejected ({e.kind})")
+    else:
+        raise AssertionError(f"2^{ST_LOG2} proof with a changed limb was accepted")
+    del proof, out
+    free_device(dev)
+
+    t0 = time.perf_counter()
+    syn = streamed.commit_streamed(src, enc, keep_comm=False, device=dev)
+    syn_root = syn.get_root().root
+    t_syn = time.perf_counter() - t0
+    if syn_root != root:
+        raise AssertionError(f"SyntheticCoeffs root {syn_root.hex()} differs from the "
+                             f"host-mode root {root.hex()}")
+    say(f"time [{card}]: streamed 2^{ST_LOG2} SyntheticCoeffs commit (rows made on the "
+        f"card) {t_syn:.3f} s, root equal to the host-mode root; {device_memory_line(dev)}")
+    del syn
+    free_device(dev)
+
+    # the kernels at this path's shapes: one 128-row collapse batch of the
+    # prove (16-bit, T=2, accumulator), one interior 32-row commit batch's
+    # chunk CVs, the merge of all 65 chunks of the 2^20 columns
+    host3 = host.reshape(n_rows, n_per_row, L)
+    rows_c = min(128, n_rows)
+    c16 = torch.from_numpy(host3[:rows_c].view(np.int16)).to(dev)
+    lf_t = torch.from_numpy(random_limbs(np.random.default_rng(SEED), (2, rows_c), spec)).to(dev)
+    acc = torch.from_numpy(random_limbs(np.random.default_rng(SEED + 1), (2, n_per_row),
+                                        spec)).to(dev)
+    W = L // 2
+    res.bound["collapse_acc"] = bound(rows_c * n_per_row * L * 2 + (2 * rows_c + 4 * n_per_row)
+                                      * L * 4, 2 * rows_c * n_per_row * W * W * 2)
+    res.compare("collapse_acc", f"one 2^{ST_LOG2} prove batch ({rows_c}, {n_per_row}, 16) "
+                f"16-bit, T=2, + acc", collapse.collapse(c16, lf_t, spec, acc=acc),
+                collapse.collapse_plain(c16, lf_t, spec, acc=acc))
+    timed_pair(res, "collapse_acc", lambda: collapse.collapse(c16, lf_t, spec, acc=acc),
+               lambda: collapse.collapse_plain(c16, lf_t, spec, acc=acc),
+               f"({rows_c}, {n_per_row}, 16) 16-bit T=2 + acc", card, plain_runs=1)
+    del c16, lf_t, acc
+    free_device(dev)
+
+    rows_b = 32
+    rows32 = torch.from_numpy(host3[31:31 + rows_b].astype(np.int32)).to(dev)
+    batch = enc.encode(rows32)
+    t_k1 = event_ms(lambda: enc.encode(rows32), 5)
+    say(f"time [{card}]: K1 through the Ligero encode of one interior 2^{ST_LOG2} commit batch "
+        f"({rows_b}, {n_cols}, 16), n_nonzero {n_per_row}: {t_k1:.3f} ms "
+        f"({len(streamed._row_batches(n_rows, spec.repr_bytes, rows_b))} batches a commit)")
+    del rows32
+    total = -(-(32 + n_rows * spec.repr_bytes) // 1024)
+    cvs = torch.zeros((n_cols, total, 8), dtype=torch.int32, device=dev)
+    cvs_plain = cvs.clone()
+    blake3.chunk_cvs(batch, spec, cvs, 1, False)
+    blake3.chunk_cvs_plain(batch, spec, cvs_plain, 1, False)
+    res.compare("blake3_chunk_cvs", f"an interior 2^{ST_LOG2} batch ({rows_b}, {n_cols}, 16)",
+                cvs, cvs_plain)
+    del cvs_plain
+    res.bound["blake3_chunk_cvs"] = bound(rows_b * n_cols * L * 4 + n_cols * 32,
+                                          n_cols * 16 * BLAKE3_OPS)
+    timed_pair(res, "blake3_chunk_cvs", lambda: blake3.chunk_cvs(batch, spec, cvs, 1, False),
+               lambda: blake3.chunk_cvs_plain(batch, spec, cvs, 1, False),
+               f"({rows_b}, {n_cols}, 16) -> ({n_cols}, 1, 8)", card, plain_runs=1)
+    del batch
+    free_device(dev)
+    cvs = torch.randint(-(1 << 31), (1 << 31) - 1, cvs.shape, dtype=torch.int32, device=dev)
+    res.compare("blake3_merge_cvs", f"({n_cols}, {total}, 8)", blake3.merge_cvs(cvs),
+                blake3.merge_cvs_plain(cvs))
+    res.bound["blake3_merge_cvs"] = bound(n_cols * total * 32 + n_cols * 32,
+                                          n_cols * (total - 1) * BLAKE3_OPS)
+    timed_pair(res, "blake3_merge_cvs", lambda: blake3.merge_cvs(cvs),
+               lambda: blake3.merge_cvs_plain(cvs), f"({n_cols}, {total}, 8) -> ({n_cols}, 8)",
+               card, plain_runs=1)
+    del cvs, host, host3
+    free_device(dev)
+
 
 KERNEL_INFO = {
     "ntt": ("lcpc_proof_of_storage_tpu_torch/csrc/ntt.cu",
@@ -725,9 +1267,30 @@ KERNEL_INFO = {
                        "lcpc_proof_of_storage_tpu/ops/blake3_jax.py:325"),
     "collapse": ("lcpc_proof_of_storage_tpu_torch/csrc/collapse.cu",
                  "lcpc_proof_of_storage_tpu/ops/collapse_pallas.py:279"),
+    "collapse_acc": ("lcpc_proof_of_storage_tpu_torch/csrc/collapse.cu",
+                     "lcpc_proof_of_storage_tpu/ops/collapse_pallas.py:143"),
+    "blake3_chunk_cvs": ("lcpc_proof_of_storage_tpu_torch/csrc/blake3.cu",
+                         "lcpc_proof_of_storage_tpu/ops/blake3_jax.py:233"),
+    "blake3_merge_cvs": ("lcpc_proof_of_storage_tpu_torch/csrc/blake3.cu",
+                         "lcpc_proof_of_storage_tpu/ops/blake3_jax.py:183"),
     "expander": ("lcpc_proof_of_storage_tpu_torch/csrc/expander.cu",
                  "lcpc_proof_of_storage_tpu/ops/expander_pallas.py:388"),
 }
+
+
+PHASES = (
+    ("kernels", lambda res, dev, card: check_kernels(res, dev)),
+    ("expander", lambda res, dev, card: check_expander(res, dev)),
+    ("golden", lambda res, dev, card: check_golden(dev)),
+    ("verify", lambda res, dev, card: check_verify(dev)),
+    ("ligero", ligero_path),
+    ("brakedown", brakedown_path),
+    ("brakedown_big", brakedown_big),
+    ("streamed_kernels", lambda res, dev, card: check_streamed_kernels(res, dev)),
+    ("streamed_modes", streamed_modes),
+    ("streamed_device", streamed_device),
+    ("streamed_host", streamed_host),
+)
 
 
 def main() -> int:
@@ -764,13 +1327,10 @@ def main() -> int:
         f" in {time.perf_counter() - t0:.1f} s")
 
     res = Results()
-    check_kernels(res, dev)
-    check_expander(res, dev)
-    check_golden(dev)
-    check_verify(dev)
-    ligero_path(res, dev, card)
-    brakedown_path(res, dev, card)
-    brakedown_big(res, dev, card)
+    for name, phase in PHASES:
+        t0 = time.perf_counter()
+        phase(res, dev, card)
+        say(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     say(card)

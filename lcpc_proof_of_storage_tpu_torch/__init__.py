@@ -1,16 +1,17 @@
 """PyTorch / CUDA port of the Ligero and Brakedown commit -> prove -> verify
-paths.
+paths, one-shot and streamed (out-of-core).
 
 The JAX package ``lcpc_proof_of_storage_tpu`` is the reference; this
 package reproduces its outputs bit for bit and imports nothing of it.  On
-CUDA tensors the row encodes (NTT, expander mat-vec), column hash, Merkle
-layers and collapse run as hand-written sm_90a kernels (``csrc/``, built at
+CUDA tensors the row encodes (NTT, expander mat-vec), column hash (whole or
+as streamed chunk chaining values), Merkle layers and collapse run as
+hand-written sm_90a kernels (``csrc/``, built at
 first use by ``kernels``); on CPU tensors they run as plain PyTorch.
 Typical entry points:
 
     from lcpc_proof_of_storage_tpu_torch import (BrakedownEncoding, LigeroEncoding,
-                                                 Transcript, commit, prove, verify,
-                                                 serialize_proof)
+                                                 Transcript, commit, commit_streamed,
+                                                 prove, verify, serialize_proof)
 
 The transcript, ChaCha, path folds, matgen walk and proof serialization are
 host code: the port's own copies of the reference's JAX-free modules
@@ -24,6 +25,8 @@ _LAZY = {
     "BrakedownEncoding": ".codes.brakedown",
     "LigeroEncoding": ".codes.ligero",
     "commit": ".core.commit",
+    "commit_streamed": ".core.streamed",
+    "SyntheticCoeffs": ".core.streamed",
     "prove": ".core.commit",
     "verify": ".core.commit",
     "LcCommit": ".core.commit",

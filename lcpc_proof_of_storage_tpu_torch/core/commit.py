@@ -29,9 +29,9 @@ from ..fields.field import FieldSpec, ints_to_limbs, limbs_to_ints
 from ..fields.limb import limb_field
 from ..native import fold_paths_native
 from ..ops.blake3 import digest_to_bytes, digests_to_bytes, hash_columns, merkle_parents
-from ..ops.collapse import collapse
 from .encoding import (LABEL_CO, LABEL_DT, LABEL_PE, LABEL_PR, LcEncoding, ceil_log2,
                        next_power_of_two)
+from .storage import as_rows, limb_matrix
 
 
 class ProverError(Exception):
@@ -165,22 +165,35 @@ class LcRoot:
 class LcCommit:
     """Commitment state (lcpc-2d/src/lib.rs:174-191), on one device.
 
-    coeffs (n_rows, n_per_row, L) and comm (n_rows, n_cols, L) are int32
-    limb tensors; hashes is the Merkle array of 2*np2(n_cols)-1 digests as
-    (n, 8) int32 words (leaves first, then layers, root last)."""
+    hashes is the Merkle array of 2*np2(n_cols)-1 digests as (n, 8) int32
+    words (leaves first, then layers, root last), on the commitment's device.
+    coeffs (n_rows, n_per_row, L) and comm (n_rows, n_cols, L) are limb
+    matrices kept as core/storage.py says (``coeff_rows`` and ``comm_rows``
+    are their stores): int32 tensors on that device, or a streamed
+    commitment's 16-bit limbs on the device or in host memory.  A streamed
+    commitment may keep no comm (prove then re-encodes the opened columns);
+    a synthetic one keeps no coeffs and serves its root alone."""
 
-    def __init__(self, coeffs: torch.Tensor, comm: torch.Tensor, n_rows: int,
-                 n_cols: int, n_per_row: int, hashes: torch.Tensor):
-        self.coeffs = coeffs
-        self.comm = comm
+    def __init__(self, coeffs, comm, n_rows: int, n_cols: int, n_per_row: int,
+                 hashes: torch.Tensor):
+        self.coeff_rows = as_rows(coeffs, hashes.device)
+        self.comm_rows = as_rows(comm, hashes.device)
         self.n_rows = n_rows
         self.n_cols = n_cols
         self.n_per_row = n_per_row
         self.hashes = hashes
 
     @property
+    def coeffs(self) -> torch.Tensor | np.ndarray | None:
+        return None if self.coeff_rows is None else self.coeff_rows.data
+
+    @property
+    def comm(self) -> torch.Tensor | np.ndarray | None:
+        return None if self.comm_rows is None else self.comm_rows.data
+
+    @property
     def device(self) -> torch.device:
-        return self.coeffs.device
+        return self.hashes.device
 
     @property
     def hashes_len(self) -> int:
@@ -202,29 +215,6 @@ class LcCommit:
 # --------------------------------------------------------------------------
 # commit
 # --------------------------------------------------------------------------
-
-def _coeffs_to_matrix(coeffs, enc: LcEncoding, device: torch.device):
-    """Pad a coefficient vector (python ints, or an (n, L) limb array or
-    tensor) to the (n_rows, n_per_row, L) int32 matrix on `device`."""
-    lf = limb_field(enc.spec)
-    if isinstance(coeffs, (list, tuple)):
-        arr = lf.array(coeffs)
-    elif isinstance(coeffs, np.ndarray):
-        arr = torch.from_numpy(coeffs.astype(np.int32))
-    else:
-        arr = coeffs.to(torch.int32)
-    if arr.dim() != 2 or arr.shape[1] != lf.L:
-        raise ValueError(f"coefficients must be (n, {lf.L}) limbs, got {tuple(arr.shape)}")
-    arr = arr.to(device)
-    length = arr.shape[0]
-    n_rows, n_per_row, n_cols = enc.get_dims(length)
-    if not enc.dims_ok(n_per_row, n_cols):
-        raise ValueError("encoding rejects its own dims")
-    pad = n_rows * n_per_row - length
-    if pad:
-        arr = torch.cat([arr, arr.new_zeros((pad, lf.L))])
-    return arr.reshape(n_rows, n_per_row, lf.L), (n_rows, n_per_row, n_cols)
-
 
 def merkle_tree_device(leaves: torch.Tensor, n_cols: int) -> torch.Tensor:
     """Merkle array from (n_cols, 8) leaves: [leaves padded with zero digests
@@ -254,7 +244,7 @@ def commit(coeffs, enc: LcEncoding, device=None) -> LcCommit:
     if device is None and isinstance(coeffs, torch.Tensor) and coeffs.is_cuda:
         device = coeffs.device
     device = default_device(device)
-    coeff_mat, (n_rows, n_per_row, n_cols) = _coeffs_to_matrix(coeffs, enc, device)
+    coeff_mat, (n_rows, n_per_row, n_cols) = limb_matrix(coeffs, enc, device)
     comm = enc.encode(coeff_mat)
     hashes = merkle_tree_device(hash_columns(comm, enc.spec), n_cols)
     return LcCommit(coeffs=coeff_mat, comm=comm, n_rows=n_rows, n_cols=n_cols,
@@ -262,8 +252,13 @@ def commit(coeffs, enc: LcEncoding, device=None) -> LcCommit:
 
 
 def check_comm(comm: LcCommit, enc: LcEncoding) -> None:
-    ok = (tuple(comm.comm.shape[:2]) == (comm.n_rows, comm.n_cols)
-          and tuple(comm.coeffs.shape[:2]) == (comm.n_rows, comm.n_per_row)
+    """Raise ProverError unless the commitment's fields agree with each other
+    and with `enc`.  comm may be None (a streamed commitment that keeps no
+    encoded matrix); where it is kept, its width is exactly n_cols."""
+    if comm.coeff_rows is None:
+        raise ProverError("a synthetic commitment keeps no coefficients to prove from")
+    ok = ((comm.comm_rows is None or comm.comm_rows.shape[:2] == (comm.n_rows, comm.n_cols))
+          and comm.coeff_rows.shape[:2] == (comm.n_rows, comm.n_per_row)
           and comm.hashes_len == 2 * next_power_of_two(comm.n_cols) - 1
           and enc.dims_ok(comm.n_per_row, comm.n_cols))
     if not ok:
@@ -278,7 +273,10 @@ def open_column(comm: LcCommit, column: int, spec: FieldSpec | None = None) -> L
     """lcpc-2d/src/lib.rs:818-855."""
     if column >= comm.n_cols:
         raise ProverError("bad column number")
-    limbs = comm.comm[:, column].cpu().numpy().astype(np.uint32)
+    if comm.comm_rows is None:
+        raise ProverError("a streamed commitment without its encoded matrix opens columns "
+                          "only inside prove")
+    limbs = comm.comm_rows.gather([column])[:, 0]
     path = merkle_path(comm.hashes, comm.n_cols, column)
     if spec is not None:
         return LcColumn(col_limbs=limbs, spec=spec, path=path)
@@ -333,11 +331,13 @@ def _challenge_tensor(tr: Transcript, spec: FieldSpec, n: int) -> list[int]:
 
 
 def _collapse_rows(comm: LcCommit, tensors: list[list[int]], spec: FieldSpec):
-    """Collapse of several tensors against the committed coefficients in one
-    K3 call; returns [(python ints, (n_per_row, L) uint32 limbs)...]."""
+    """Collapse of several tensors against the committed coefficients: one K3
+    call where they are on the device, one K3p pass over row batches where
+    they are in host memory (core/storage.py); returns [(python ints,
+    (n_per_row, L) uint32 limbs)...]."""
     lf = limb_field(spec)
     t = torch.stack([lf.array(tv) for tv in tensors]).to(comm.device)
-    out = collapse(comm.coeffs, t, spec).cpu().numpy().astype(np.uint32)
+    out = comm.coeff_rows.collapse(t, spec).cpu().numpy().astype(np.uint32)
     return [(limbs_to_ints(out[i]), out[i]) for i in range(len(tensors))]
 
 
@@ -411,13 +411,17 @@ def prove(comm: LcCommit, outer_tensor: list[int], enc: LcEncoding,
         (p_eval, pe_limbs), = _collapse_rows(comm, [outer_tensor], spec)
     _append_coeffs(tr, LABEL_PE, pe_limbs, spec)
 
-    # the opened columns and their sibling paths in one gather each; the
-    # paths stay one packed (k, depth, 32) array (depth >= 1: check_comm
-    # requires n_cols > n_per_row >= 1), with no per-column byte lists
+    # the opened columns and their sibling paths in one gather each (a
+    # streamed commitment without its encoded matrix re-encodes the rows
+    # instead); the paths stay one packed (k, depth, 32) array (depth >= 1:
+    # check_comm requires n_cols > n_per_row >= 1), with no per-column byte
+    # lists
     cols_to_open = _columns_to_open(tr, comm.n_cols, enc.get_n_col_opens())
     k = len(cols_to_open)
-    cidx = torch.tensor(cols_to_open, dtype=torch.int64, device=comm.device)
-    cols_arr = comm.comm[:, cidx].cpu().numpy()                     # (rows, k, L)
+    if comm.comm_rows is None:
+        cols_arr = comm.coeff_rows.open_columns(enc, comm.n_cols, cols_to_open)
+    else:
+        cols_arr = comm.comm_rows.gather(cols_to_open)                  # (rows, k, L)
     pidx = torch.from_numpy(_path_indices(comm.n_cols, cols_to_open)).to(comm.device)
     paths_packed = _packed_from_sibs(comm.hashes[pidx].cpu().numpy(), k,
                                      ceil_log2(comm.n_cols))

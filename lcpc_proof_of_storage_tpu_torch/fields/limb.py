@@ -3,7 +3,9 @@
 Counterpart of ``lcpc_proof_of_storage_tpu/fields/limb.py``.  A field
 element is a vector of ``L = num_limbs16`` canonical 16-bit limbs in the
 trailing axis, little-endian limb order.  At module boundaries limbs are
-``torch.int32`` (the reference's uint32 bits for values below 2^16); every
+``torch.int32`` (the reference's uint32 bits for values below 2^16), or
+``torch.int16`` bit patterns where a streamed commitment stores them in 16
+bits (:func:`widen_limbs`, :func:`narrow_limbs`); every
 operation here widens to int64, where limb products and their sums are exact
 without the reference's lo/hi 16-bit splitting.
 
@@ -167,6 +169,21 @@ class LimbField:
         """Modular sum along an axis (not the limb axis)."""
         s = a.to(I64).sum(dim=axis)
         return self.barrett_reduce(self._carry_norm(s, self.L + 2))
+
+
+def widen_limbs(limbs: torch.Tensor) -> torch.Tensor:
+    """Limbs as int32: 16-bit limbs stored as int16 bit patterns are read
+    unsigned; int32 limbs pass through."""
+    if limbs.dtype == torch.int16:
+        return limbs.to(torch.int32) & MASK16
+    return limbs.to(torch.int32)
+
+
+def narrow_limbs(limbs: torch.Tensor) -> torch.Tensor:
+    """Canonical limbs (< 2^16) -> the same bits as int16 (the 16-bit storage
+    of streamed commitments: torch has no arithmetic on uint16)."""
+    x = limbs.to(torch.int32)
+    return (x - ((x >> 15) << 16)).to(torch.int16)
 
 
 @functools.lru_cache(maxsize=None)

@@ -133,14 +133,26 @@ NTT_FORWARD = Kernel("lcpc_ntt_forward", [P, P, P, P, I, I, I, I, P, P])
 BLAKE3_LEAVES = Kernel("lcpc_blake3_leaves", [P, P, I, I, I, I, P])
 # csrc/blake3.cu: nodes, out, n_parents, stream
 BLAKE3_PARENTS = Kernel("lcpc_blake3_parents", [P, P, I, P])
-# csrc/collapse.cu: coeffs, t, out, rows, npr, T, L, p_host, mu_host, mu_len, stream
-COLLAPSE = Kernel("lcpc_collapse", [P, P, P, I, I, I, I, P, P, I, P])
+# csrc/blake3.cu: batch, cvs, rows_b, n_cols, k, ld, chunk0, first, tail_len, W, big_endian,
+# stream
+BLAKE3_CHUNK_CVS = Kernel("lcpc_blake3_chunk_cvs",
+                          [P, P, I, I, I, I, ctypes.c_longlong, I, I, I, I, P])
+# csrc/blake3.cu: cvs, out, n_cols, nchunks, stream
+BLAKE3_MERGE_CVS = Kernel("lcpc_blake3_merge_cvs", [P, P, I, I, P])
+# csrc/collapse.cu: coeffs, coeff_bits, t, acc, out, rows, npr, T, L, p_host, mu_host, mu_len,
+# stream.  One entry, two counters: K3 (acc null) and K3p (an accumulator, the
+# streamed collapse's step), counted by ops/collapse.py.
+_COLLAPSE_ARGS = [P, I, P, P, P, I, I, I, I, P, P, I, P]
+COLLAPSE = Kernel("lcpc_collapse", _COLLAPSE_ARGS)
+COLLAPSE_ACC = Kernel("lcpc_collapse", _COLLAPSE_ARGS)
 # csrc/expander.cu: x, idx, vals, counts, out, b, cols, rows, L, p_host, mu_host, mu_len,
 # stream
 EXPANDER = Kernel("lcpc_expander_matvec", [P, P, P, P, P, I, I, I, I, P, P, I, P])
 
 KERNELS = {"ntt": NTT_FORWARD, "blake3_leaves": BLAKE3_LEAVES,
-           "blake3_parents": BLAKE3_PARENTS, "collapse": COLLAPSE, "expander": EXPANDER}
+           "blake3_parents": BLAKE3_PARENTS, "blake3_chunk_cvs": BLAKE3_CHUNK_CVS,
+           "blake3_merge_cvs": BLAKE3_MERGE_CVS, "collapse": COLLAPSE,
+           "collapse_acc": COLLAPSE_ACC, "expander": EXPANDER}
 
 
 def reset_launch_counts() -> None:

@@ -1,8 +1,10 @@
-"""Blake3 column leaves and Merkle parents over limb tensors.
+"""Blake3 column leaves, Merkle parents and streamed chunk CVs over limb
+tensors.
 
 Counterparts of ``lcpc_proof_of_storage_tpu/ops/blake3_jax.py`` (the plain
 versions here) and ``ops/blake3_pallas.py`` (kernel K2, ``csrc/blake3.cu``,
-whose second entry point also builds the Merkle layers).
+whose other entry points build the Merkle layers, the chunk chaining values
+of one row batch of a streamed commit, and the leaves merged from them).
 
 Digests are (n, 8) ``torch.int32`` tensors carrying the bit pattern of the
 reference's uint32 words.  The plain versions compute the 32-bit adds and
@@ -104,24 +106,71 @@ def _chunk_tables(msg_len_bytes: int) -> tuple:
     return lens, flags, active
 
 
+def _compress_chunks(msg_words: torch.Tensor, counters: torch.Tensor,
+                     tables: tuple) -> torch.Tensor:
+    """CVs of the k chunks of (batch, k*256) words, given each chunk's
+    counter and the (block, chunk) lengths, flags and active masks ->
+    (batch, k, 8) int64."""
+    batch, nw = msg_words.shape
+    k = nw // (b3.CHUNK_LEN // 4)
+    dev = msg_words.device
+    blocks = msg_words.to(I64).reshape(batch, k, 16, 16)
+    lens, flags, active = (torch.from_numpy(a).to(dev) for a in tables)
+    cv = torch.tensor(IV, dtype=I64, device=dev).expand(batch, k, 8)
+    for b in range(16):
+        new = compress8(cv, blocks[:, :, b], counters, lens[b], flags[b])
+        cv = torch.where(active[b][None, :, None], new, cv)
+    return cv
+
+
 def blake3_batch_words(msg_words: torch.Tensor, msg_len_bytes: int) -> torch.Tensor:
     """Blake3 of equal-length messages given as LE 32-bit words:
     (batch, ceil(len/4)) -> (batch, 8) int64 words."""
-    batch = msg_words.shape[0]
     dev = msg_words.device
     nchunks = max(1, (msg_len_bytes + b3.CHUNK_LEN - 1) // b3.CHUNK_LEN)
     pad = nchunks * (b3.CHUNK_LEN // 4) - msg_words.shape[1]
     msg = torch.nn.functional.pad(msg_words.to(I64), (0, pad))
-    blocks = msg.reshape(batch, nchunks, 16, 16)
-    lens, flags, active = (torch.from_numpy(a).to(dev) for a in _chunk_tables(msg_len_bytes))
-    counters = torch.arange(nchunks, dtype=I64, device=dev)
-    cv = torch.tensor(IV, dtype=I64, device=dev).expand(batch, nchunks, 8)
-    for b in range(16):
-        new = compress8(cv, blocks[:, :, b], counters, lens[b], flags[b])
-        cv = torch.where(active[b][None, :, None], new, cv)
+    cv = _compress_chunks(msg, torch.arange(nchunks, dtype=I64, device=dev),
+                          _chunk_tables(msg_len_bytes))
     if nchunks == 1:
         return cv[:, 0]
     return merge_chunk_cvs(cv)
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_tables_slice(k: int, tail_len: int) -> tuple:
+    """Per-(block, chunk) block lengths, flags and active masks of k
+    consecutive whole chunks of a multi-chunk message, the last of them
+    tail_len bytes long (1024 unless it is the message's partial last
+    chunk).  Chunk flags are per chunk, so nothing depends on where the
+    slice sits in the message."""
+    if not 1 <= tail_len <= b3.CHUNK_LEN:
+        raise ValueError(f"tail_len {tail_len} outside [1, {b3.CHUNK_LEN}]")
+    lens = np.zeros((16, k), np.int64)
+    flags = np.zeros((16, k), np.int64)
+    active = np.zeros((16, k), bool)
+    for j in range(k):
+        clen = tail_len if j == k - 1 else b3.CHUNK_LEN
+        nblocks = (clen + b3.BLOCK_LEN - 1) // b3.BLOCK_LEN
+        for bidx in range(nblocks):
+            lens[bidx, j] = min(b3.BLOCK_LEN, clen - bidx * b3.BLOCK_LEN)
+            flags[bidx, j] = (CHUNK_START if bidx == 0 else 0) | (
+                CHUNK_END if bidx == nblocks - 1 else 0)
+            active[bidx, j] = True
+    return lens, flags, active
+
+
+def chunk_cvs_words(msg_words: torch.Tensor, counters: torch.Tensor,
+                    tail_len: int = b3.CHUNK_LEN) -> torch.Tensor:
+    """CVs of k consecutive chunks of equal-length multi-chunk messages:
+    (batch, k*256) LE words (zero past the message end) and (k,) global
+    chunk counters -> (batch, k, 8) int64 words."""
+    nw = msg_words.shape[1]
+    k = nw // (b3.CHUNK_LEN // 4)
+    if nw != k * (b3.CHUNK_LEN // 4):
+        raise ValueError(f"chunk_cvs_words: {nw} words is not whole chunks")
+    counters = torch.as_tensor(counters, dtype=I64, device=msg_words.device)
+    return _compress_chunks(msg_words, counters, _chunk_tables_slice(k, tail_len))
 
 
 def merge_chunk_cvs(cvs: torch.Tensor) -> torch.Tensor:
@@ -187,6 +236,92 @@ def hash_columns_plain(comm: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     words = limbs_to_repr_words(comm, spec).permute(1, 0, 2).reshape(n_cols, -1)
     msg = torch.cat([torch.zeros((n_cols, 8), dtype=I64, device=comm.device), words], dim=1)
     return _to_i32(blake3_batch_words(msg, 32 + n_rows * spec.repr_bytes))
+
+
+def batch_chunks(rows_b: int, spec: FieldSpec, first: bool) -> tuple[int, int]:
+    """(k, byte span) of one row batch's part of every column message: the
+    32 zero bytes before row 0 in the first batch only, then rows_b reprs,
+    in k chunks."""
+    span = (32 if first else 0) + rows_b * spec.repr_bytes
+    return -(-span // b3.CHUNK_LEN), span
+
+
+def batch_message_words(comm_b: torch.Tensor, spec: FieldSpec, first: bool) -> torch.Tensor:
+    """One encoded row batch (rows_b, n_cols, L) -> each column's part of
+    its leaf message as (n_cols, k*256) int64 words: repr words in row
+    order, 8 zero words before row 0 in the first batch, zero pad to whole
+    chunks."""
+    rows_b, n_cols, _ = comm_b.shape
+    k, span = batch_chunks(rows_b, spec, first)
+    words = limbs_to_repr_words(comm_b, spec).permute(1, 0, 2).reshape(n_cols, -1)
+    lead = 8 if first else 0
+    return torch.nn.functional.pad(words, (lead, k * (b3.CHUNK_LEN // 4) - span // 4))
+
+
+def _check_chunk_args(comm_b: torch.Tensor, spec: FieldSpec, cvs: torch.Tensor, chunk0: int,
+                      first: bool) -> tuple[int, int]:
+    """(k, tail_len): the batch's chunk count and its last chunk's bytes."""
+    rows_b, n_cols, L = comm_b.shape
+    k, span = batch_chunks(rows_b, spec, first)
+    if L != spec.num_limbs16:
+        raise ValueError(f"chunk_cvs: batch {tuple(comm_b.shape)} is not {spec.name} limbs")
+    if cvs.dim() != 3 or cvs.shape[0] != n_cols or cvs.shape[2] != 8 or not (
+            0 <= chunk0 and chunk0 + k <= cvs.shape[1]):
+        raise ValueError(f"chunk_cvs: CV array {tuple(cvs.shape)} has no room for chunks "
+                         f"{chunk0}..{chunk0 + k - 1} of {n_cols} columns")
+    return k, span - (k - 1) * b3.CHUNK_LEN
+
+
+def chunk_cvs_plain(comm_b: torch.Tensor, spec: FieldSpec, cvs: torch.Tensor, chunk0: int,
+                    first: bool) -> None:
+    """Write the CVs of the k chunks that one encoded row batch covers into
+    cvs[:, chunk0:chunk0+k] ((n_cols, total_chunks, 8) int32), plain
+    PyTorch.  The batch's last chunk is partial only where the message ends:
+    the caller cuts every other batch on a chunk boundary."""
+    k, tail_len = _check_chunk_args(comm_b, spec, cvs, chunk0, first)
+    counters = torch.arange(chunk0, chunk0 + k, dtype=I64, device=comm_b.device)
+    words = batch_message_words(comm_b, spec, first)
+    cvs[:, chunk0:chunk0 + k] = _to_i32(chunk_cvs_words(words, counters, tail_len))
+
+
+def chunk_cvs(comm_b: torch.Tensor, spec: FieldSpec, cvs: torch.Tensor, chunk0: int,
+              first: bool) -> None:
+    """:func:`chunk_cvs_plain` (CPU) or K2's chunk-CV entry (CUDA): the CVs of
+    the chunks that one encoded row batch covers, with global counters from
+    chunk0, into cvs[:, chunk0:chunk0+k]."""
+    if comm_b.device.type == "cpu":
+        return chunk_cvs_plain(comm_b, spec, cvs, chunk0, first)
+    rows_b, n_cols, L = comm_b.shape
+    kernels.check_cuda("chunk_cvs batch", comm_b, torch.int32)
+    kernels.check_cuda("chunk_cvs cvs", cvs, torch.int32)
+    if 2 * L != spec.repr_bytes or L // 2 not in (2, 4, 6, 8) or cvs.device != comm_b.device:
+        raise ValueError(f"chunk_cvs kernel: unsupported field {spec.name} or devices")
+    k, tail_len = _check_chunk_args(comm_b, spec, cvs, chunk0, first)
+    with torch.cuda.device(comm_b.device):
+        kernels.BLAKE3_CHUNK_CVS(kernels.ptr(comm_b), kernels.ptr(cvs), rows_b, n_cols, k,
+                                 cvs.shape[1], chunk0, int(first), tail_len, L // 2,
+                                 int(spec.endianness == "big"), kernels.stream_of(comm_b))
+
+
+def merge_cvs_plain(cvs: torch.Tensor) -> torch.Tensor:
+    """(n_cols, k >= 2, 8) int32 chunk CVs -> (n_cols, 8) int32 leaf digests."""
+    return _to_i32(merge_chunk_cvs(cvs.to(I64) & MASK32))
+
+
+def merge_cvs(cvs: torch.Tensor) -> torch.Tensor:
+    """Leaf digests from all chunk CVs of every column (K2's merge entry on
+    CUDA, :func:`merge_cvs_plain` on CPU)."""
+    if cvs.dim() != 3 or cvs.shape[1] < 2 or cvs.shape[2] != 8:
+        raise ValueError(f"merge_cvs: expected (n_cols, k >= 2, 8), got {tuple(cvs.shape)}")
+    if cvs.device.type == "cpu":
+        return merge_cvs_plain(cvs)
+    kernels.check_cuda("merge_cvs", cvs, torch.int32)
+    n_cols, k, _ = cvs.shape
+    out = torch.empty((n_cols, 8), dtype=torch.int32, device=cvs.device)
+    with torch.cuda.device(cvs.device):
+        kernels.BLAKE3_MERGE_CVS(kernels.ptr(cvs), kernels.ptr(out), n_cols, k,
+                                 kernels.stream_of(cvs))
+    return out
 
 
 def merkle_parents_plain(nodes: torch.Tensor) -> torch.Tensor:

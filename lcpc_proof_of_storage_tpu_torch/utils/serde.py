@@ -208,6 +208,19 @@ def serialize_proof(proof, spec: FieldSpec) -> bytes:
     return buf.getvalue()
 
 
+def serialized_proof_len(n_rows: int, n_per_row: int, n_cols: int, n_degree_tests: int,
+                         n_col_opens: int, spec: FieldSpec) -> int:
+    """Bytes of :func:`serialize_proof` for a proof of these dims: n_cols;
+    p_eval and each degree-test row as a length and n_per_row field values;
+    each opened column as a length, n_rows values, a length and a path of
+    ceil(log2 n_cols) length-prefixed 32-byte digests."""
+    value = 8 * spec.u64_limbs
+    depth = (n_cols - 1).bit_length() if n_cols > 1 else 0
+    row = 8 + n_per_row * value
+    column = 8 + n_rows * value + 8 + depth * (8 + 32)
+    return 8 + row + 8 + n_degree_tests * row + 8 + n_col_opens * column
+
+
 def deserialize_proof(data: bytes, spec: FieldSpec):
     buf = io.BytesIO(data)
     n_cols = read_u64(buf)

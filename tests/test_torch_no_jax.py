@@ -18,9 +18,9 @@ for m in MODULES:
 import lcpc_proof_of_storage_tpu_torch as p
 from lcpc_proof_of_storage_tpu_torch.fields import FT63
 
-def run(enc, n):
+def run(enc, n, commit=p.commit):
     coeffs = [(i * 2654435761 + 12345) % FT63.modulus for i in range(n)]
-    comm = p.commit(coeffs, enc)
+    comm = commit(coeffs, enc)
     root = comm.get_root().root
     x = 987654321
     xr = pow(x, comm.n_per_row, FT63.modulus)
@@ -38,6 +38,9 @@ def run(enc, n):
 
 run(p.LigeroEncoding.new_from_dims(16, 64, FT63), 300)
 run(p.BrakedownEncoding.new(400, seed=3, field=FT63), 400)
+run(p.LigeroEncoding.new_from_dims(4, 16, FT63), 1100,
+    lambda c, e: p.commit_streamed(c, e, target_batch_rows=100, keep_comm=False,
+                                   device_coeffs=False))
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "lcpc_proof_of_storage_tpu"))
 assert not bad, bad
@@ -46,9 +49,10 @@ assert "torch" in sys.modules
 
 
 def test_importing_the_port_loads_no_jax():
-    """Every port module imports, and a tiny Ligero and a tiny Brakedown
-    commit -> prove -> serde -> verify run on the CPU, with no jax* and no
-    lcpc_proof_of_storage_tpu module loaded."""
+    """Every port module imports, and a tiny Ligero, a tiny Brakedown and a
+    tiny streamed Ligero (three row batches, host coefficients, no encoded
+    matrix kept) commit -> prove -> serde -> verify run on the CPU, with no
+    jax* and no lcpc_proof_of_storage_tpu module loaded."""
     modules = sorted(
         ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
