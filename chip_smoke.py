@@ -23,7 +23,13 @@ with 16-bit coefficients and encoded matrix on the card, and at 2^29 with
 the coefficients in host memory and no encoded matrix kept (commit, prove,
 serialize, verify, a tampered proof, the proof length, the synthetic
 root); at each of those three sizes K1 against its plain version at that
-path's n (2^18, 2^19, 2^20); timings, peak device memory and host RSS.
+path's n (2^18, 2^19, 2^20); K4's inverse entry against its plain version
+on five fields at n = 2^4 .. 2^20 and K1 at the PoS sizes; the
+proof-of-storage lifecycle (an in-process server and client on the card)
+on a 16 MiB file against the CPU writer's files, and on a 1 GiB file
+(chunked upload, proof, evaluation, row, edit, append, a corrupted
+.porenc) with a 256 MiB whole upload and download; timings, peak device
+memory and host RSS.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after.  The script prints a JSON line of per-kernel results
 and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
@@ -136,6 +142,16 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     operations / peak rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ntt_bound(batch: int, n: int, L: int, stages: int, scale: bool = False):
+    """K1 / K4 bound: the limbs read once and written once; a radix-2
+    butterfly is one Montgomery product of W-word values (2 W^2
+    multiply-adds) and a modular add and subtract, ~4 W^2 + 8 W operations;
+    the inverse's scale one more product an element."""
+    W = L // 2
+    ops = batch * (n // 2) * stages * (4 * W * W + 8 * W) + (batch * n * 4 * W * W if scale else 0)
+    return bound(2 * batch * n * L * 4, ops)
 
 
 def cuda_ms(fn, runs: int = N_TIMED) -> float:
@@ -522,11 +538,7 @@ def ligero_path(res: Results, dev, card: str) -> None:
     tvec = torch.from_numpy(random_limbs(rng, (2, n_rows), spec)).to(dev)
     W = L // 2
     skip = (n_cols // n_per_row).bit_length() - 1     # stages that only duplicate
-    # a radix-2 butterfly: one Montgomery product of W-word values (2 W^2
-    # multiply-adds) and a modular add and subtract, ~4 W^2 + 8 W operations
-    res.bound["ntt"] = bound(2 * n_rows * n_cols * L * 4,
-                             n_rows * (n_cols // 2) * (n_cols.bit_length() - 1 - skip)
-                             * (4 * W * W + 8 * W))
+    res.bound["ntt"] = ntt_bound(n_rows, n_cols, L, n_cols.bit_length() - 1 - skip)
     msg_blocks = -(-(32 + n_rows * spec.repr_bytes) // 64)
     chunks = -(-(32 + n_rows * spec.repr_bytes) // 1024)
     res.bound["blake3_leaves"] = bound(n_rows * n_cols * L * 4 + n_cols * 32,
@@ -1258,9 +1270,485 @@ def streamed_host(res: Results, dev, card: str) -> None:
     free_device(dev)
 
 
+# --------------------------------------------------------------------------
+# the proof-of-storage layer
+# --------------------------------------------------------------------------
+
+POS_SIZE = 1 << 30            # the pos phase's file: 1 GiB of writeable_ft63 data, square dims
+POS_DOWNLOAD_SIZE = 1 << 28   # the unchunked upload and download (a whole file travels as hex)
+POS_SMALL_SIZE = 1 << 24      # the pos_small lifecycle: dims (1171, 2048, 4096)
+POS_DISK_PER_BYTE = 13        # the quadruple (5.6x the file), an edit's and an append's clone,
+POS_DISK_EXTRA = 2 << 30      # the client's copy; plus the 256 MiB file's round trip
+
+
+def check_pos_kernels(res: Results, dev, card: str) -> None:
+    """K4's inverse entry against intt_plain on the card, bit-exact, on five
+    fields at n = 2^4, 2^8, 2^14, 2^15 (batch 1 and 128) and 2^20 (batch 1,
+    and 128 for the 4-limb fields: the plain version's int64 intermediates
+    of 128 rows of 8 or 16 limbs pass the card's memory); intt(ntt(x)) == x;
+    K1 against ntt_plain at the PoS sizes with n_nonzero = n/2; K4 inverse
+    timed at (128, 32768, 16) ft255 beside K1 and at the client's
+    (1, 32768, 4) writeable_ft63 decode."""
+    import numpy as np
+    import torch
+    from lcpc_proof_of_storage_tpu_torch.fields import (FT63, FT127, FT253_192, FT255,
+                                                        WRITEABLE_FT63)
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    for spec in (FT63, WRITEABLE_FT63, FT127, FT255, FT253_192):
+        for log_n in (4, 8, 14, 15, 20):
+            n = 1 << log_n
+            tables = ntt.NttTables(spec, n).to(dev)
+            batches = (1, 128) if log_n < 20 or spec.num_limbs16 == 4 else (1,)
+            for batch in batches:
+                x = random_limbs_device(gen, (batch, n), spec, dev)
+                res.compare("ntt_inverse", f"{spec.name} batch={batch} n=2^{log_n}",
+                            ntt.intt(x, spec, tables), ntt.intt_plain(x, spec, tables),
+                            quiet=log_n < 14)
+                del x
+            x = random_limbs_device(gen, (4, n), spec, dev)
+            res.compare("ntt_inverse", f"{spec.name} intt(ntt(x)) == x at n=2^{log_n}",
+                        ntt.intt(ntt.ntt(x, spec, tables=tables), spec, tables), x, quiet=True)
+            del x, tables
+            free_device(dev)
+    say("kernel ntt_inverse: intt(ntt(x)) == x on the card for every field and size above")
+    for spec in (WRITEABLE_FT63, FT253_192, FT255):
+        for log_n in (8, 10, 14, 15):
+            n = 1 << log_n
+            tables = ntt.NttTables(spec, n).to(dev)
+            x = random_limbs_device(gen, (128, n), spec, dev)
+            x[:, n // 2:] = 0
+            res.compare("ntt", f"{spec.name} batch=128 n=2^{log_n} n_nonzero={n // 2} (PoS)",
+                        ntt.ntt(x, spec, n // 2, tables), ntt.ntt_plain(x, spec, n // 2, tables))
+    free_device(dev)
+
+    for spec, batch, n, what in ((FT255, 128, 1 << 15, "beside K1's Ligero 2^20 row"),
+                                 (WRITEABLE_FT63, 1, 1 << 15, "the client's PoS decode")):
+        L = spec.num_limbs16
+        tables = ntt.NttTables(spec, n).to(dev)
+        x = random_limbs_device(gen, (batch, n), spec, dev)
+        b = ntt_bound(batch, n, L, n.bit_length() - 1, scale=True)
+        k = min(event_ms(lambda: ntt.intt(x, spec, tables)) for _ in range(2))
+        p = event_ms(lambda: ntt.intt_plain(x, spec, tables), 2)
+        say(f"time [{card}]: ntt_inverse ({batch}, {n}, {L}) {spec.name} ({what}): kernel "
+            f"{k:.4f} ms, plain {p:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        if batch == 1:   # the PoS path's shape is the kernel line's
+            res.ms["ntt_inverse"], res.plain_ms["ntt_inverse"] = k, p
+            res.bound["ntt_inverse"] = b
+        else:
+            kf = event_ms(lambda: ntt.ntt(x, spec, tables=tables))
+            bf = ntt_bound(batch, n, L, n.bit_length() - 1)
+            say(f"time [{card}]: ntt ({batch}, {n}, {L}) {spec.name}, n_nonzero={n}, the same "
+                f"inputs: kernel {kf:.4f} ms, bound {bf[0]:.4f} ms ({bf[1]})")
+        del x, tables
+    # K4's forward half is K1 at the PoS writer's shape: one interior batch
+    # of the 1 GiB file (512 rows of n_enc = 2^15, n_nonzero = n_pre = 2^14)
+    spec, batch, n = WRITEABLE_FT63, 512, 1 << 15
+    tables = ntt.NttTables(spec, n).to(dev)
+    x = random_limbs_device(gen, (batch, n), spec, dev)
+    x[:, n // 2:] = 0
+    res.compare("ntt", f"{spec.name} batch={batch} n=2^15 n_nonzero={n // 2} (one PoS writer "
+                f"batch)", ntt.ntt(x, spec, n // 2, tables), ntt.ntt_plain(x, spec, n // 2, tables))
+    b = ntt_bound(batch, n, spec.num_limbs16, n.bit_length() - 2)
+    k = min(event_ms(lambda: ntt.ntt(x, spec, n // 2, tables)) for _ in range(2))
+    p = event_ms(lambda: ntt.ntt_plain(x, spec, n // 2, tables), 2)
+    say(f"time [{card}]: ntt ({batch}, {n}, 4) {spec.name} n_nonzero={n // 2} (K4's forward "
+        f"half, one PoS writer batch): kernel {k:.4f} ms, plain {p:.3f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]})")
+    del x, tables
+    free_device(dev)
+    check_pos_path_kernels(res, dev, card, gen)
+
+
+def check_pos_path_kernels(res: Results, dev, card: str, gen) -> None:
+    """K3p, chunk CVs and merge at the shapes the 1 GiB file's path gives
+    them, against their plain versions: one left-multiply batch of the
+    evaluation (raw data bytes as 16-bit limbs, T = 1, an accumulator), and
+    the writer's whole batch sequence of chunk CVs (508 rows to the first
+    chunk boundary within 512, then 512-row batches, then the tail: all 74
+    chunks of a column) and their merge."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch.fields import WRITEABLE_FT63
+    from lcpc_proof_of_storage_tpu_torch.fields.limb import narrow_limbs
+    from lcpc_proof_of_storage_tpu_torch.ops import blake3, collapse
+    from lcpc_proof_of_storage_tpu_torch.pos import online
+    from lcpc_proof_of_storage_tpu_torch.pos.file_handler import LEFT_MULTIPLY_BYTES
+    from lcpc_proof_of_storage_tpu_torch.pos.storage import (aligned_batches, ceildiv,
+                                                             data_bytes_to_limbs, target_rows)
+
+    spec = WRITEABLE_FT63
+    L, W, cap = spec.num_limbs16, spec.repr_bytes, spec.data_byte_capacity
+    n_pre, n_enc, n_rows = online.get_aspect_ratio_default_from_file_len(POS_SIZE, spec)
+    rows_b = LEFT_MULTIPLY_BYTES // (n_pre * cap)
+    data = torch.randint(0, 256, (rows_b * n_pre * cap,), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    mat = narrow_limbs(data_bytes_to_limbs(data, spec)).view(rows_b, n_pre, L)
+    t = random_limbs_device(gen, (1, rows_b), spec, dev)
+    acc = random_limbs_device(gen, (1, n_pre), spec, dev)
+    res.compare("collapse_acc", f"one 1 GiB PoS left-multiply batch ({rows_b}, {n_pre}, {L}) "
+                f"16-bit, T=1, + acc", collapse.collapse(mat, t, spec, acc=acc),
+                collapse.collapse_plain(mat, t, spec, acc=acc))
+    k = min(event_ms(lambda: collapse.collapse(mat, t, spec, acc=acc)) for _ in range(2))
+    p = event_ms(lambda: collapse.collapse_plain(mat, t, spec, acc=acc), 2)
+    b = bound(mat.numel() * 2 + (rows_b + 2 * n_pre) * L * 4, 2 * rows_b * n_pre * (L // 2) ** 2)
+    say(f"time [{card}]: collapse_acc ({rows_b}, {n_pre}, {L}) 16-bit T=1 + acc (one PoS "
+        f"left-multiply batch): kernel {k:.4f} ms, plain {p:.3f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]})")
+    del data, mat, t, acc
+    free_device(dev)
+
+    batches = aligned_batches(0, n_rows, W, target_rows(n_enc, spec))
+    total = ceildiv(32 + n_rows * W, 1024)
+    cvs = torch.zeros((n_enc, total, 8), dtype=torch.int32, device=dev)
+    cvs_plain = cvs.clone()
+    for s, e in batches:
+        rows = random_limbs_device(gen, (e - s, n_enc), spec, dev)
+        chunk0 = 0 if s == 0 else (32 + s * W) // 1024
+        blake3.chunk_cvs(rows, spec, cvs, chunk0, s == 0)
+        blake3.chunk_cvs_plain(rows, spec, cvs_plain, chunk0, s == 0)
+    sizes = sorted({e - s for s, e in batches})
+    res.compare("blake3_chunk_cvs", f"the 1 GiB PoS writer's {len(batches)} batches of "
+                f"{n_rows} rows (sizes {sizes}), {n_enc} columns, {total} chunks a column",
+                cvs, cvs_plain)
+    res.compare("blake3_merge_cvs", f"the 1 GiB PoS writer's ({n_enc}, {total}, 8)",
+                blake3.merge_cvs(cvs), blake3.merge_cvs_plain(cvs))
+    del cvs, cvs_plain, rows
+    free_device(dev)
+
+
+class PosRun:
+    """An in-process port server on a random localhost port and the port's
+    client, both on `dev`, run in one event loop; times every step."""
+
+    def __init__(self, base, dev):
+        self.base = base
+        self.dev = dev
+        self.times: dict[str, float] = {}
+
+    async def start(self):
+        from lcpc_proof_of_storage_tpu_torch.pos.database import MetadataStore
+        from lcpc_proof_of_storage_tpu_torch.pos.networking.client import ClientSession
+        from lcpc_proof_of_storage_tpu_torch.pos.networking.server import serve
+        self.server = await serve(0, base=self.base / "srv", db_path=str(self.base / "srv_db"),
+                                  device=self.dev)
+        port = self.server.sockets[0].getsockname()[1]
+        self.session = await ClientSession.connect(f"127.0.0.1:{port}",
+                                                   MetadataStore(self.base / "client_db"),
+                                                   device=self.dev)
+
+    async def stop(self):
+        await self.session.close()
+        self.server.close()
+        await self.server.wait_closed()
+
+    async def step(self, name: str, coro):
+        import torch
+        t0 = time.perf_counter()
+        out = await coro
+        torch.cuda.synchronize()
+        self.times[name] = time.perf_counter() - t0
+        return out
+
+    def paths(self, meta):
+        from lcpc_proof_of_storage_tpu_torch.pos.storage import file_paths
+        return file_paths(meta.id_ulid, self.base / "srv")
+
+    async def corrupt_and_fail(self, meta, name: str):
+        """Flip one bit of a challenged column in the stored .porenc: the
+        next proof must fail."""
+        from lcpc_proof_of_storage_tpu_torch.pos import online
+        col = online.get_column_indices_from_random_seed(
+            online.FIXED_RANDOM_SEED_CHANGE_LATER,
+            online.get_pos_soundness_n_cols(meta.num_columns, meta.num_encoded_columns),
+            meta.num_encoded_columns)[0]
+        enc = self.paths(meta)["enc"]
+        row_capacity = enc.stat().st_size // (meta.num_encoded_columns * 8)
+        off = col * row_capacity * 8 + 5
+        with open(enc, "r+b") as f:
+            f.seek(off)
+            b = f.read(1)[0]
+            f.seek(off)
+            f.write(bytes([b ^ 0x10]))
+        try:
+            await self.step(name, self.session.request_and_verify_proof(meta))
+        except online.VerificationError:
+            return
+        raise AssertionError(f"a proof over a corrupted .porenc (column {col}) verified")
+
+
+def pos_file(path, size: int, seed: int) -> bytes:
+    data = __import__("numpy").random.default_rng(seed).bytes(size)
+    path.write_bytes(data)
+    return data
+
+
+def pos_small(res: Results, dev, card: str) -> None:
+    """A 16 MiB writeable_ft63 file, dims (1171, 2048, 4096), through the
+    whole lifecycle on the card: chunked upload with the client's leaves
+    precompute, proof, polynomial evaluation, a row request, edit, append,
+    reshape, unchunked upload and download, a corrupted .porenc, delete.
+    The root and the .portree equal those the writer gives on the CPU (the
+    plain versions) for the same bytes, which launches no kernel; the
+    evaluation vector of the uploaded file equals the one a CPU handler
+    computes; the row generator's root on the card (its Merkle layers by
+    K2's parents) equals its root on the CPU."""
+    import asyncio
+    import shutil
+    import tempfile
+    from lcpc_proof_of_storage_tpu_torch.fields import WRITEABLE_FT63
+    from lcpc_proof_of_storage_tpu_torch.pos import online
+    from lcpc_proof_of_storage_tpu_torch.pos.file_handler import FileHandler
+    from lcpc_proof_of_storage_tpu_torch.pos.networking import shared
+    from lcpc_proof_of_storage_tpu_torch.pos.row_generator import RowGenerator
+    from lcpc_proof_of_storage_tpu_torch.pos.storage import EncodedFileWriter, file_paths
+
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_pos_small_"))
+    try:
+        src = base / "small.bin"
+        data = pos_file(src, POS_SMALL_SIZE, SEED + 16)
+        run = PosRun(base, dev)
+        out = {}
+        edit_at = POS_SMALL_SIZE // 3 + 1
+
+        async def scenario():
+            await run.start()
+            s = run.session
+            try:
+                meta = out["meta"] = await run.step("upload (chunked)",
+                                                    s.upload_file(src, use_chunks=True))
+                out["tree"] = run.paths(meta)["tree"].read_bytes()
+                out["enc"] = run.paths(meta)["enc"].read_bytes()
+                for key, path in file_paths(meta.id_ulid, base / "copy").items():
+                    shutil.copyfile(run.paths(meta)[key], path)
+                await run.step("proof", s.request_and_verify_proof(meta))
+                await run.step("evaluation", s.request_and_verify_polynomial(meta))
+                row = await run.step("row", s.rpc(shared.request_file_row(meta, 7)))
+                row_bytes = meta.num_columns * WRITEABLE_FT63.data_byte_capacity
+                if bytes.fromhex(row["row"]) != data[7 * row_bytes: 8 * row_bytes]:
+                    raise AssertionError("RequestFileRow returned other bytes")
+                meta = await run.step("edit", s.edit_file(meta, edit_at, b"edited on the card"))
+                meta = await run.step("append", s.append_to_file(meta, b"appended" * 1000))
+                meta = await run.step("reshape", s.reshape_file(meta, 1024, 2048))
+                want = bytearray(data)
+                want[edit_at:edit_at + 18] = b"edited on the card"
+                want += b"appended" * 1000
+                got = await run.step("download", s.download_file(meta))
+                if got != bytes(want):
+                    raise AssertionError("the downloaded file differs from the edited bytes")
+                whole = await run.step("upload (whole)", s.upload_file(src))
+                if whole.root != out["meta"].root:
+                    raise AssertionError("whole and chunked uploads gave different roots")
+                await run.corrupt_and_fail(meta, "corrupted proof")
+                await run.step("delete", s.delete_file(meta))
+                await run.step("delete (whole)", s.delete_file(whole))
+            finally:
+                await run.stop()
+
+        launches = launches_of(lambda: asyncio.run(scenario()))
+        res.add_launches("pos_small_16MiB", launches)
+        meta = out["meta"]
+        missing = [k for k in ("ntt", "ntt_inverse", "collapse_acc", "blake3_chunk_cvs",
+                               "blake3_merge_cvs", "blake3_parents") if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the 16 MiB lifecycle: {missing}")
+        cpu = {}
+
+        def cpu_write():
+            cpu["meta"], cpu["tree"] = EncodedFileWriter.convert_unencoded_file(
+                src, base / "cpu.porenc", base / "cpu.portree", None, meta.num_columns,
+                meta.num_encoded_columns, WRITEABLE_FT63, device="cpu")
+
+        cpu_launches = launches_of(cpu_write)
+        if any(cpu_launches.values()):
+            raise AssertionError(f"the CPU writer launched kernels: {cpu_launches}")
+        if ((base / "cpu.portree").read_bytes() != out["tree"] or cpu["tree"].root() != meta.root
+                or (base / "cpu.porenc").read_bytes() != out["enc"]):
+            raise AssertionError("the card's .porenc, .portree or root differs from the CPU "
+                                 "writer's")
+        # the evaluation vector the card's server computes for the uploaded
+        # file (K3p, then K1), against a CPU handler on the same quadruple
+        left, _ = online.form_side_vectors(123456789, meta.num_rows, meta.num_encoded_columns)
+        evals = {d: FileHandler.attach(meta.id_ulid, WRITEABLE_FT63, base=base / "copy",
+                                       device=d).verifiable_polynomial_evaluation(left)
+                 for d in (dev, "cpu")}
+        if evals[dev] != evals["cpu"]:
+            raise AssertionError("the card's evaluation vector differs from the CPU handler's")
+        vals = [int(v) for v in __import__("numpy").random.default_rng(SEED + 17).integers(
+            0, WRITEABLE_FT63.modulus, 200 * 2048, dtype="uint64")]
+        roots = {}
+        gen_launches = launches_of(lambda: roots.__setitem__(dev, RowGenerator(
+            vals, 2048, 4096, WRITEABLE_FT63, device=dev).convert_to_commit_root()))
+        roots["cpu"] = RowGenerator(vals, 2048, 4096, WRITEABLE_FT63,
+                                    device="cpu").convert_to_commit_root()
+        if roots[dev] != roots["cpu"] or gen_launches["blake3_parents"] == 0:
+            raise AssertionError(f"the row generator's root on the card differs from the CPU's, "
+                                 f"or its tree was not built by K2's parents: {gen_launches}")
+        say(f"pos_small: the evaluation vector ({len(evals[dev])} values) equals the CPU "
+            f"handler's; the row generator's root (200 rows) equals the CPU's, launches "
+            f"{ {k: v for k, v in gen_launches.items() if v} }")
+        say(f"pos_small: 16 MiB, dims ({meta.num_rows}, {meta.num_columns}, "
+            f"{meta.num_encoded_columns}); upload, proof, evaluation, row, edit, append, "
+            f"reshape, download, whole upload verified, the corrupted .porenc failed its proof; "
+            f"root {meta.root.hex()[:16]}..., .porenc and .portree equal the CPU writer's (no kernel "
+            f"launched on the CPU); launches {launches}")
+        say(f"time [{card}]: pos_small " + ", ".join(f"{k} {v:.3f} s"
+                                                      for k, v in run.times.items()))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    free_device(dev)
+
+
+def pos_path(res: Results, dev, card: str) -> None:
+    """The PoS layer at its real size: a 1 GiB seeded writeable_ft63 file,
+    square dims (9363, 16384, 32768), 309 challenged columns.  Chunked
+    upload (64 KiB chunks; the client's leaves precompute and its 309-column
+    check), proof, polynomial evaluation (K3p and K1 on the server, K4's
+    inverse on the client), a row request, one edit and one append (each
+    verified and accepted), a flipped byte in the stored .porenc that the
+    next proof rejects, delete; then a 256 MiB file uploaded whole and
+    downloaded, byte for byte.  Reshape is left out at this size: the
+    server evaluates the whole file as Python ints there (server.py
+    h_request_reshape_eval)."""
+    import asyncio
+    import shutil
+    import tempfile
+    import torch
+    from lcpc_proof_of_storage_tpu_torch.fields import WRITEABLE_FT63
+    from lcpc_proof_of_storage_tpu_torch.pos.networking import shared
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import GLOBAL_PHASES
+
+    def spans():
+        """The phase spans since the last call, then cleared."""
+        out = {f"{a}/{b}": (t, GLOBAL_PHASES.counts[(a, b)])
+               for (a, b), t in sorted(GLOBAL_PHASES.totals.items())}
+        GLOBAL_PHASES.totals.clear()
+        GLOBAL_PHASES.counts.clear()
+        return out
+
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    size = POS_SIZE
+    while size > POS_SMALL_SIZE and POS_DISK_PER_BYTE * size + POS_DISK_EXTRA > free:
+        size //= 2
+    say(f"pos: {free / 1e9:.1f} GB free in {tmp}; file size {size} bytes"
+        + ("" if size == POS_SIZE else f" (cut from {POS_SIZE}: the disk)"))
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_pos_"))
+    try:
+        t0 = time.perf_counter()
+        src = base / "big.bin"
+        pos_file(src, size, SEED)
+        src2 = base / "download.bin"
+        data2 = pos_file(src2, POS_DOWNLOAD_SIZE, SEED + 1)
+        say(f"pos: seeded files written in {time.perf_counter() - t0:.1f} s (set-up)")
+        free_device(dev)
+        run = PosRun(base, dev)
+        out = {}
+
+        async def scenario():
+            await run.start()
+            s = run.session
+            try:
+                meta = out["meta"] = await run.step("upload (chunked)",
+                                                    s.upload_file(src, use_chunks=True))
+                await run.step("proof", s.request_and_verify_proof(meta))
+                await run.step("evaluation", s.request_and_verify_polynomial(meta))
+                row_i = meta.num_rows // 2
+                row = await run.step("row", s.rpc(shared.request_file_row(meta, row_i)))
+                row_bytes = meta.num_columns * WRITEABLE_FT63.data_byte_capacity
+                with open(src, "rb") as f:
+                    f.seek(row_i * row_bytes)
+                    if bytes.fromhex(row["row"]) != f.read(row_bytes):
+                        raise AssertionError("RequestFileRow returned other bytes")
+                spans()
+                meta = await run.step("edit", s.edit_file(meta, size // 3, b"edited at 1 GiB"))
+                out["edit spans"] = spans()
+                meta = out["final"] = await run.step("append",
+                                                     s.append_to_file(meta, b"appended" * 4096))
+                out["append spans"] = spans()
+                await run.corrupt_and_fail(meta, "corrupted proof")
+                await run.step("delete", s.delete_file(meta))
+                m2 = out["m2"] = await run.step("upload (whole, 256 MiB)", s.upload_file(src2))
+                got = await run.step("download (256 MiB)", s.download_file(m2))
+                if got != data2:
+                    raise AssertionError("the downloaded 256 MiB file differs")
+                await run.step("delete (256 MiB)", s.delete_file(m2))
+            finally:
+                await run.stop()
+
+        launches = launches_of(lambda: asyncio.run(scenario()))
+        res.add_launches(f"pos_{size >> 20}MiB", launches)
+        missing = [k for k in ("ntt", "ntt_inverse", "collapse_acc", "blake3_chunk_cvs",
+                               "blake3_merge_cvs", "blake3_parents") if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the pos path: {missing}")
+        meta, m2 = out["meta"], out["m2"]
+        say(f"pos: {size} bytes, dims ({meta.num_rows}, {meta.num_columns}, "
+            f"{meta.num_encoded_columns}), root {meta.root.hex()[:16]}...; upload, proof, "
+            f"evaluation, row, edit and append verified, the corrupted .porenc failed its "
+            f"proof; 256 MiB dims ({m2.num_rows}, {m2.num_columns}, {m2.num_encoded_columns}) "
+            f"uploaded whole and downloaded equal; launches {launches}")
+        say(f"time [{card}]: pos " + ", ".join(f"{k} {v:.3f} s" for k, v in run.times.items())
+            + f"; chunked upload {size / run.times['upload (chunked)'] / 1e6:.1f} MB/s; "
+            f"{device_memory_line(dev)}")
+        for op in ("edit", "append"):
+            say(f"time [{card}]: pos {op} split (phase spans, wall s, count): " + "; ".join(
+                f"{k} {t} ({n})" for k, (t, n) in out[f"{op} spans"].items()))
+        pos_upload_legs(src, meta, base / "legs.porenc", dev, card,
+                        run.times["upload (chunked)"])
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    free_device(dev)
+
+
+def pos_upload_legs(src, meta, enc_path, dev, card: str, upload_s: float) -> None:
+    """The chunked upload's two device legs, run alone on the same file
+    after the lifecycle: the client's leaves precompute of the challenged
+    columns, and the writer (encode, column digests, and the transpose to
+    column-major bytes with its copy into the mapped .porenc, timed apart).
+    The rest of the upload is the wire: 64 KiB chunks as hex JSON, the raw
+    file's appends and the proof check."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch.fields import WRITEABLE_FT63
+    from lcpc_proof_of_storage_tpu_torch.pos import online
+    from lcpc_proof_of_storage_tpu_torch.pos.storage import EncodedFileWriter
+
+    n_pre, n_enc = meta.num_columns, meta.num_encoded_columns
+    cols = online.get_column_indices_from_random_seed(
+        online.FIXED_RANDOM_SEED_CHANGE_LATER, online.get_pos_soundness_n_cols(n_pre, n_enc),
+        n_enc)
+    t0 = time.perf_counter()
+    leaves = online.streaming_leaves_for_file(src, n_pre, n_enc, cols, WRITEABLE_FT63, dev)
+    t_leaves = time.perf_counter() - t0
+
+    class TimedWriter(EncodedFileWriter):
+        write_s = 0.0
+
+        def _write_rows(self, encoded):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            super()._write_rows(encoded)
+            TimedWriter.write_s += time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    _, tree = TimedWriter.convert_unencoded_file(src, enc_path, None, None, n_pre, n_enc,
+                                                 WRITEABLE_FT63, device=dev)
+    t_writer = time.perf_counter() - t0
+    enc_path.unlink()
+    if tree.root() != meta.root or [tree[c] for c in cols] != leaves:
+        raise AssertionError("the writer's root or the client's leaves differ from the upload's")
+    say(f"time [{card}]: pos upload legs alone: client leaves precompute {t_leaves:.3f} s, "
+        f"writer {t_writer:.3f} s (of which transpose to column-major bytes, copy to the "
+        f"host and strided write {TimedWriter.write_s:.3f} s); the wire and the proof check "
+        f"take the rest of the chunked upload's {upload_s:.3f} s")
+
+
 KERNEL_INFO = {
     "ntt": ("lcpc_proof_of_storage_tpu_torch/csrc/ntt.cu",
             "lcpc_proof_of_storage_tpu/ops/ntt_pallas3.py:546"),
+    "ntt_inverse": ("lcpc_proof_of_storage_tpu_torch/csrc/ntt.cu",
+                    "lcpc_proof_of_storage_tpu/ops/ntt_pallas2.py:323,348 (inverse)"),
     "blake3_leaves": ("lcpc_proof_of_storage_tpu_torch/csrc/blake3.cu",
                       "lcpc_proof_of_storage_tpu/ops/blake3_pallas.py:139"),
     "blake3_parents": ("lcpc_proof_of_storage_tpu_torch/csrc/blake3.cu",
@@ -1290,6 +1778,9 @@ PHASES = (
     ("streamed_modes", streamed_modes),
     ("streamed_device", streamed_device),
     ("streamed_host", streamed_host),
+    ("pos_kernels", check_pos_kernels),
+    ("pos_small", pos_small),
+    ("pos", pos_path),
 )
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``lcpc_proof_of_storage_tpu/codes/ligero.py``: the same
 dimension solver and soundness formulas (lcpc-ligero-pc/src/lib.rs), with
-the row encode going through :func:`ops.ntt.ntt` (kernel K1 on CUDA).
+the row encode going through :func:`ops.ntt.ntt` (kernel K1 on CUDA) and
+the decode through :func:`ops.ntt.intt` (kernel K4's inverse entry).
 
   * n_col_opens = ceil(-lambda / log2((1+rho)/2))          (lib.rs:61-64)
   * n_degree_tests via lcpc-2d's formula                    (lib.rs:66-68)
@@ -20,7 +21,7 @@ import torch
 
 from ..core.encoding import LcEncoding, n_degree_tests, next_power_of_two
 from ..fields.field import FieldSpec
-from ..ops.ntt import NttTables, ntt
+from ..ops.ntt import NttTables, intt, ntt
 
 LAMBDA = 128
 
@@ -130,6 +131,11 @@ class LigeroEncoding(LcEncoding):
         padded = rows.new_zeros((batch, self.n_cols, L))
         padded[:, :width] = rows
         return ntt(padded, self.spec, width, self.tables(rows.device))
+
+    def decode(self, rows: torch.Tensor) -> torch.Tensor:
+        """Inverse NTT of (batch, n_cols, L) codewords on the rows' device:
+        all n_cols coefficients (the PoS read path truncates them)."""
+        return intt(rows, self.spec, self.tables(rows.device))
 
     def get_dims(self, length: int) -> tuple[int, int, int]:
         n_rows = (length + self.n_per_row - 1) // self.n_per_row

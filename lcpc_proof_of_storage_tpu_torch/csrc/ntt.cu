@@ -1,10 +1,22 @@
-// K1: forward number-theoretic transform over a prime field, for sm_90a.
+// K1: forward number-theoretic transform over a prime field, for sm_90a,
+// and K4's inverse entry.
 //
-// Replaces: lcpc_proof_of_storage_tpu/ops/ntt_pallas3.py, ntt_pallas3
+// K1 replaces: lcpc_proof_of_storage_tpu/ops/ntt_pallas3.py, ntt_pallas3
 // (the four-step kernels _kernel_a / _call_a and _kernel_b / _call_b).
 // Computes what ops/ntt.py ntt computes: (batch, n, L) 16-bit limbs ->
 // natural-order evaluations at w^0 .. w^(n-1), for any power-of-two n >= 2.
-// Input positions at or past n_nonzero are read as zero.
+// Input positions at or past n_nonzero are read as zero.  It also serves
+// the forward half of K4 (ops/ntt_pallas2.py, _in_tile_call /
+// _large_pair_call with the zero-pad skip): the same function.
+//
+// K4 inverse (lcpc_ntt_inverse) replaces the inverse half of
+// ops/ntt_pallas2.py ntt_pallas2(inverse=True) (_in_tile_call /
+// _large_pair_call with the n^-1 scale) and computes what ops/ntt.py intt
+// computes: evaluations -> coefficients.  It packs with the bit-reversal
+// (no zero tail), runs the same log2(n) stage launches with the w^-j
+// twiddles in Montgomery form, and fuses the n^-1 scale into the unpack as
+// one Montgomery product by n^-1 * 2^(32W) mod p.  Its bound and its
+// design are K1's: each stage reads and writes the whole word matrix.
 //
 // Layout: the limbs are packed into W = L/2 32-bit words per element (one
 // launch, which also applies the bit-reversal permutation and the zero
@@ -191,6 +203,29 @@ __global__ void ntt_unpack(const uint32_t* __restrict__ x, int32_t* __restrict__
     }
 }
 
+// (batch, n, W) words -> (batch, n, 2W) int32 limbs of x * s mod p, where
+// s holds n^-1 * 2^(32W) mod p (so mont_mul gives x * n^-1)
+template <int W>
+struct Words {
+    uint32_t w[W];
+};
+
+template <int W>
+__global__ void ntt_unpack_scale(const uint32_t* __restrict__ x, int32_t* __restrict__ out,
+                                 Mod<W> m, Words<W> s, int64_t total) {
+    int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= total) return;
+    uint32_t a[W], y[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) a[w] = x[t * W + w];
+    mont_mul<W>(y, a, s.w, m);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        out[t * 2 * W + 2 * w] = (int32_t)(y[w] & 0xFFFFu);
+        out[t * 2 * W + 2 * w + 1] = (int32_t)(y[w] >> 16);
+    }
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(int64_t total) {
@@ -198,15 +233,20 @@ inline unsigned blocks_for(int64_t total) {
 }
 
 template <int W>
-int ntt_forward(const int32_t* in, int32_t* out, uint32_t* work, const uint32_t* tw,
-                int batch, int log_n, int n_nonzero, const uint32_t* p_host,
-                cudaStream_t stream) {
+Mod<W> make_mod(const uint32_t* p_host) {
     Mod<W> m;
     for (int i = 0; i < W; ++i) m.p[i] = p_host[i];
     uint32_t inv = m.p[0];  // Newton: inv = p0^{-1} mod 2^32
     for (int i = 0; i < 5; ++i) inv *= 2u - m.p[0] * inv;
     m.pinv = 0u - inv;
+    return m;
+}
 
+template <int W>
+int ntt_forward(const int32_t* in, int32_t* out, uint32_t* work, const uint32_t* tw,
+                int batch, int log_n, int n_nonzero, const uint32_t* p_host,
+                cudaStream_t stream) {
+    Mod<W> m = make_mod<W>(p_host);
     int64_t n = (int64_t)1 << log_n;
     int64_t elems = (int64_t)batch * n;
     ntt_pack_bitrev<W><<<blocks_for(elems), kThreads, 0, stream>>>(in, work, log_n,
@@ -216,6 +256,25 @@ int ntt_forward(const int32_t* in, int32_t* out, uint32_t* work, const uint32_t*
         ntt_stage<W><<<blocks_for(flies), kThreads, 0, stream>>>(work, tw, log_n, s, m,
                                                                  flies);
     ntt_unpack<W><<<blocks_for(elems), kThreads, 0, stream>>>(work, out, elems);
+    return (int)cudaGetLastError();
+}
+
+template <int W>
+int ntt_inverse(const int32_t* in, int32_t* out, uint32_t* work, const uint32_t* tw_inv,
+                int batch, int log_n, const uint32_t* p_host, const uint32_t* n_inv_mont,
+                cudaStream_t stream) {
+    Mod<W> m = make_mod<W>(p_host);
+    Words<W> s;
+    for (int i = 0; i < W; ++i) s.w[i] = n_inv_mont[i];
+    int64_t n = (int64_t)1 << log_n;
+    int64_t elems = (int64_t)batch * n;
+    ntt_pack_bitrev<W><<<blocks_for(elems), kThreads, 0, stream>>>(in, work, log_n, (int)n,
+                                                                   elems);
+    int64_t flies = elems / 2;
+    for (int st = 0; st < log_n; ++st)
+        ntt_stage<W><<<blocks_for(flies), kThreads, 0, stream>>>(work, tw_inv, log_n, st, m,
+                                                                 flies);
+    ntt_unpack_scale<W><<<blocks_for(elems), kThreads, 0, stream>>>(work, out, m, s, elems);
     return (int)cudaGetLastError();
 }
 
@@ -239,6 +298,29 @@ int lcpc_ntt_forward(const void* in, void* out, void* work, const void* tw, int 
         case 4: return ntt_forward<4>(i, o, wk, t, batch, log_n, n_nonzero, p, st);
         case 6: return ntt_forward<6>(i, o, wk, t, batch, log_n, n_nonzero, p, st);
         case 8: return ntt_forward<8>(i, o, wk, t, batch, log_n, n_nonzero, p, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// in, out: (batch, 2^log_n, 2W) int32 limbs; work: (batch, 2^log_n, W) words;
+// tw_inv: (2^(log_n-1), W) words of w^-j * 2^(32W) mod p; p_host, n_inv_mont:
+// W host words of p and of n^-1 * 2^(32W) mod p.  Returns the
+// cudaGetLastError() code after the launches (0 on success).
+int lcpc_ntt_inverse(const void* in, void* out, void* work, const void* tw_inv, int batch,
+                     int log_n, int W, const void* p_host, const void* n_inv_mont,
+                     void* stream) {
+    auto i = static_cast<const int32_t*>(in);
+    auto o = static_cast<int32_t*>(out);
+    auto wk = static_cast<uint32_t*>(work);
+    auto t = static_cast<const uint32_t*>(tw_inv);
+    auto p = static_cast<const uint32_t*>(p_host);
+    auto s = static_cast<const uint32_t*>(n_inv_mont);
+    auto st = static_cast<cudaStream_t>(stream);
+    switch (W) {
+        case 2: return ntt_inverse<2>(i, o, wk, t, batch, log_n, p, s, st);
+        case 4: return ntt_inverse<4>(i, o, wk, t, batch, log_n, p, s, st);
+        case 6: return ntt_inverse<6>(i, o, wk, t, batch, log_n, p, s, st);
+        case 8: return ntt_inverse<8>(i, o, wk, t, batch, log_n, p, s, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

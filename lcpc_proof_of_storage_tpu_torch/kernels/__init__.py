@@ -129,6 +129,8 @@ class Kernel:
 
 # csrc/ntt.cu: in, out, work, tw, batch, log_n, n_nonzero, W, p_host, stream
 NTT_FORWARD = Kernel("lcpc_ntt_forward", [P, P, P, P, I, I, I, I, P, P])
+# csrc/ntt.cu: in, out, work, tw_inv, batch, log_n, W, p_host, n_inv_mont, stream
+NTT_INVERSE = Kernel("lcpc_ntt_inverse", [P, P, P, P, I, I, I, P, P, P])
 # csrc/blake3.cu: in, out, n_rows, n_cols, W, big_endian, stream
 BLAKE3_LEAVES = Kernel("lcpc_blake3_leaves", [P, P, I, I, I, I, P])
 # csrc/blake3.cu: nodes, out, n_parents, stream
@@ -149,7 +151,7 @@ COLLAPSE_ACC = Kernel("lcpc_collapse", _COLLAPSE_ARGS)
 # stream
 EXPANDER = Kernel("lcpc_expander_matvec", [P, P, P, P, P, I, I, I, I, P, P, I, P])
 
-KERNELS = {"ntt": NTT_FORWARD, "blake3_leaves": BLAKE3_LEAVES,
+KERNELS = {"ntt": NTT_FORWARD, "ntt_inverse": NTT_INVERSE, "blake3_leaves": BLAKE3_LEAVES,
            "blake3_parents": BLAKE3_PARENTS, "blake3_chunk_cvs": BLAKE3_CHUNK_CVS,
            "blake3_merge_cvs": BLAKE3_MERGE_CVS, "collapse": COLLAPSE,
            "collapse_acc": COLLAPSE_ACC, "expander": EXPANDER}

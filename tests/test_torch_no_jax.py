@@ -41,6 +41,31 @@ run(p.BrakedownEncoding.new(400, seed=3, field=FT63), 400)
 run(p.LigeroEncoding.new_from_dims(4, 16, FT63), 1100,
     lambda c, e: p.commit_streamed(c, e, target_batch_rows=100, keep_comm=False,
                                    device_coeffs=False))
+
+import asyncio, pathlib, tempfile
+from lcpc_proof_of_storage_tpu_torch.pos.database import MetadataStore
+from lcpc_proof_of_storage_tpu_torch.pos.networking.client import ClientSession
+from lcpc_proof_of_storage_tpu_torch.pos.networking.server import serve
+
+async def pos_round_trip(base):
+    server = await serve(0, base=base, db_path=str(base / "srv_db"), device="cpu")
+    port = server.sockets[0].getsockname()[1]
+    data = bytes((i * 31 + 7) % 256 for i in range(3000))
+    (base / "f.bin").write_bytes(data)
+    session = await ClientSession.connect(f"127.0.0.1:{port}", MetadataStore(base / "db"),
+                                          device="cpu")
+    try:
+        meta = await session.upload_file(base / "f.bin", 8, 32)
+        await session.request_and_verify_proof(meta)
+        await session.request_and_verify_polynomial(meta)
+        assert await session.download_file(meta) == data
+    finally:
+        await session.close()
+        server.close()
+        await server.wait_closed()
+
+with tempfile.TemporaryDirectory() as d:
+    asyncio.run(pos_round_trip(pathlib.Path(d)))
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "lcpc_proof_of_storage_tpu"))
 assert not bad, bad
@@ -51,8 +76,10 @@ assert "torch" in sys.modules
 def test_importing_the_port_loads_no_jax():
     """Every port module imports, and a tiny Ligero, a tiny Brakedown and a
     tiny streamed Ligero (three row batches, host coefficients, no encoded
-    matrix kept) commit -> prove -> serde -> verify run on the CPU, with no
-    jax* and no lcpc_proof_of_storage_tpu module loaded."""
+    matrix kept) commit -> prove -> serde -> verify run on the CPU, then a
+    tiny PoS round trip (an in-process server and client: upload, proof,
+    polynomial evaluation, download), with no jax* and no
+    lcpc_proof_of_storage_tpu module loaded."""
     modules = sorted(
         ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
@@ -71,7 +98,10 @@ def _imports(src: Path):
 
 
 def test_no_jax_import_in_sources():
-    for src in [*PKG.rglob("*.py"), *SCRIPTS]:
+    sources = [*PKG.rglob("*.py"), *SCRIPTS]
+    assert {"storage.py", "server.py", "client.py", "cli.py"} <= {
+        p.name for p in PKG.rglob("*.py") if "pos" in p.relative_to(PKG).parts}
+    for src in sources:
         for line, top in _imports(src):
             assert top not in ("jax", "jaxlib"), f"{src}: {line}"
 
