@@ -9,9 +9,16 @@ Phases, one or more lines each: environment; kernel build from csrc/ (one
 nvcc per source, in parallel); each hand-written kernel against its plain
 PyTorch version on the card (bit-exact), K5 on every field, on a level of
 3000 slots, on a ragged row count and on all 12 levels of a 2^21 encode;
-the Ligero and Brakedown golden pins of tests/golden_vectors.json with every
-tensor on CUDA; verify's placement; the Ligero path (rho=1/4, ft255, 2^20:
-one commit, prove + verify at three points); the Brakedown path (SdigCode3,
+KT (ntt_tile) and KM (mul_mod) on five fields, the four_step and
+fused_small NTT routes against K1 up to n = 2^20 and the fused_small
+inverse against K4's; the Ligero and Brakedown golden pins of
+tests/golden_vectors.json with every tensor on CUDA; verify's placement;
+the Ligero path (rho=1/4, ft255, 2^20: one commit, prove + verify at three
+points) on each NTT route, with equal roots and proof bytes, the
+fused_small decode against K4's, every KT and KM launch the routes make on
+the commit's (128, 32768, 16) input held against its plain version on the
+same inputs, and KT, KM and the routes timed beside K1 there; the
+Brakedown path (SdigCode3,
 ft255, seed 0, 2^21: one commit, prove + verify at two points, proof bytes,
 root against the plain versions', the streamed root); one Brakedown commit,
 prove and verify at 2^25, and its streamed commit and proof; the streamed
@@ -22,9 +29,13 @@ device_coeffs modes against the one-shot root and proof bytes, at 2^28
 with 16-bit coefficients and encoded matrix on the card, and at 2^29 with
 the coefficients in host memory and no encoded matrix kept (commit, prove,
 serialize, verify, a tampered proof, the proof length, the synthetic
-root); at each of those three sizes K1 against its plain version at that
-path's n (2^18, 2^19, 2^20); K4's inverse entry against its plain version
-on five fields at n = 2^4 .. 2^20 and K1 at the PoS sizes; the
+root, a second commit on the four_step route to the same root, every KT
+and KM launch of the routes on one (32, 2^20, 16) commit batch held
+against its plain version on two of its rows, KT and the routes timed
+there); at each of those three sizes K1
+against its plain version at that path's n (2^18, 2^19, 2^20); K4's
+inverse entry against its plain version on five fields at n = 2^4 .. 2^20
+and K1 at the PoS sizes; the
 proof-of-storage lifecycle (an in-process server and client on the card)
 on a 16 MiB file against the CPU writer's files, and on a 1 GiB file
 (chunked upload, proof, evaluation, row, edit, append, a corrupted
@@ -315,6 +326,199 @@ def check_expander(res: Results, dev) -> None:
 
 
 # --------------------------------------------------------------------------
+# the NTT routes: KT (ntt_tile) and KM (mul_mod)
+# --------------------------------------------------------------------------
+
+def tile_bound(count: int, L: int, stages: int, in_limbs: bool, out_limbs: bool,
+               n_diag: int = 0) -> tuple[float, str]:
+    """KT's bound: its values read once and written once (16-bit limbs as int32
+    or W words each), the diagonal twiddles of one row (n_diag values) read
+    once; a butterfly ~4 W^2 + 8 W operations (ntt_bound), the prologue one
+    Montgomery product (4 W^2) a value."""
+    W = L // 2
+    nbytes = count * 4 * ((L if in_limbs else W) + (L if out_limbs else W)) + n_diag * W * 4
+    ops = count // 2 * stages * (4 * W * W + 8 * W) + (count * 4 * W * W if n_diag else 0)
+    return bound(nbytes, ops)
+
+
+def mul_mod_bound(n: int, b_rows: int, L: int) -> tuple[float, str]:
+    """KM's bound: a, b and out once; two Montgomery products a value."""
+    W = L // 2
+    return bound((2 * n + b_rows) * L * 4, n * 8 * W * W)
+
+
+def check_ntt_route_kernels(res: Results, dev) -> None:
+    """KT against ntt_tile_stages_plain and KM against mul_mod_plain on five
+    fields, bit-exact: KT on every sub-length 2 .. 1024 with and without the
+    four-step's diagonal prologue, limbs or words in and out, and at the
+    fused_small tile (2048) and the largest (4096); KM at a ragged N with
+    b_rows = N, 7 and 1.  Then both routes against K1 at n = 2^11, 2^15
+    (n_nonzero 8192 and 100 <= n1), 2^18 and 2^20 on ft63 and ft255, and the
+    fused_small inverse against K4's inverse at n = 2^4 .. 2^20."""
+    import numpy as np
+    import torch
+    from lcpc_proof_of_storage_tpu_torch.fields import FT63, FT127, FT191, FT253_192, FT255
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+
+    rng = np.random.default_rng(SEED + 5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    for spec in (FT63, FT127, FT191, FT255, FT253_192):
+        L = spec.num_limbs16
+        fs = ntt.NttTables(spec, 1 << 11, "four_step").to(dev)
+        x = torch.from_numpy(random_limbs(rng, (2, 1 << 11), spec)).to(dev)
+        words = ntt.pack_words(x)
+        for s1 in range(1, 11):
+            for diag in (False, True):
+                got = ntt.ntt_tile_stages(x, fs, 0, s1, diag=diag)
+                res.compare("ntt_tile", f"{spec.name} sub-length {1 << s1} of n=2^11, limbs in "
+                            f"words out, prologue {diag}", got,
+                            ntt.ntt_tile_stages_plain(x, fs, 0, s1, diag), quiet=True)
+                got = ntt.ntt_tile_stages(words, fs, s1 // 2, s1, diag=diag, inverse=True,
+                                          out_limbs=True)
+                res.compare("ntt_tile", f"{spec.name} sub-length {1 << s1}, words in limbs out, "
+                            f"inverse twiddles, prologue {diag}", got,
+                            ntt.ntt_tile_stages_plain(words, fs, s1 // 2, s1, diag, True, True),
+                            quiet=True)
+        fu = ntt.NttTables(spec, 1 << 15, "fused_small").to(dev)
+        x = random_limbs_device(gen, (3, 1 << 15), spec, dev)
+        for log_t in (11, 12):
+            for s0 in (0, 2):
+                res.compare("ntt_tile", f"{spec.name} tile 2^{log_t} of n=2^15 from stage {s0}",
+                            ntt.ntt_tile_stages(x, fu, s0, log_t),
+                            ntt.ntt_tile_stages_plain(x, fu, s0, log_t), quiet=True)
+        say(f"kernel ntt_tile {spec.name}: sub-lengths 2 .. 1024 with and without the prologue, "
+            f"tiles 2048 and 4096: bit-exact against plain")
+        for n, b_rows in ((100_003, 100_003), (100_003, 7), (4099, 1)):
+            a = torch.from_numpy(random_limbs(rng, (n,), spec)).to(dev)
+            b = torch.from_numpy(random_limbs(rng, (b_rows,), spec)).to(dev)
+            res.compare("mul_mod", f"{spec.name} N={n} b_rows={b_rows}", ntt.mul_mod(a, b, spec),
+                        ntt.mul_mod_plain(a, b, spec), quiet=True)
+        say(f"kernel mul_mod {spec.name}: N = 100003 (b_rows N and 7) and 4099 (one broadcast "
+            f"row): bit-exact against plain")
+        free_device(dev)
+
+    for spec in (FT63, FT255):
+        name = spec.name
+        for log_n, nnzs in ((11, (None, 700)), (15, (8192, 100)), (18, (None, 1 << 16)),
+                            (20, (None, 1 << 18))):
+            n = 1 << log_n
+            batch = 2 if log_n >= 18 else 4
+            fs = ntt.NttTables(spec, n, "four_step").to(dev)
+            fu = ntt.NttTables(spec, n, "fused_small").to(dev)
+            for nnz in nnzs:
+                x = random_limbs_device(gen, (batch, n), spec, dev)
+                if nnz is not None:
+                    x[:, nnz:] = 0
+                want = ntt.ntt(x, spec, nnz, fs)
+                res.compare("ntt_tile", f"four_step route against K1, {name} batch={batch} "
+                            f"n=2^{log_n} n_nonzero={nnz}", ntt.ntt_four_step(x, spec, nnz, fs),
+                            want, quiet=True)
+                res.compare("ntt_tile", f"fused_small route against K1, {name} batch={batch} "
+                            f"n=2^{log_n} n_nonzero={nnz}", ntt.ntt_fused_small(x, spec, nnz, fu),
+                            want, quiet=True)
+                del x, want
+            del fs, fu
+            free_device(dev)
+        say(f"ntt routes {name}: four_step and fused_small bit-exact against K1 at n = 2^11 "
+            f"(n_nonzero n, 700), 2^15 (8192, 100), 2^18 (n, 2^16), 2^20 (n, 2^18)")
+        for log_n in range(4, 21):
+            n = 1 << log_n
+            fu = ntt.NttTables(spec, n, "fused_small").to(dev)
+            x = random_limbs_device(gen, (2, n), spec, dev)
+            res.compare("ntt_tile", f"fused_small inverse against K4, {name} n=2^{log_n}",
+                        ntt.ntt_fused_small(x, spec, None, fu, inverse=True),
+                        ntt.intt(x, spec, fu), quiet=True)
+            del x, fu
+        free_device(dev)
+        say(f"ntt routes {name}: the fused_small inverse bit-exact against K4's inverse at n = "
+            f"2^4 .. 2^20")
+
+
+def route_call_label(call, L: int) -> str:
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    if isinstance(call, ntt.MulModCall):
+        return f"KM ({call.a.shape[0]}, {L}) x ({call.b.shape[0]}, {L})"
+    io = "limbs" if call.x.shape[-1] == L else "words"
+    return (f"KT stages {call.s0}..{call.s1 - 1}{' after the diagonal twiddle' if call.diag else ''}"
+            f"{' with w^-j' if call.inverse else ''} over {tuple(call.x.shape)} {io}")
+
+
+def route_call_bound(call, L: int) -> tuple[float, str]:
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    if isinstance(call, ntt.MulModCall):
+        return mul_mod_bound(call.a.shape[0], call.b.shape[0], L)
+    return tile_bound(call.x.numel() // call.x.shape[-1], L, call.s1 - call.s0,
+                      call.x.shape[-1] == L, call.out_limbs, call.tables.n if call.diag else 0)
+
+
+def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
+                    record: bool = False, check_rows: int | None = None) -> None:
+    """At one path's (batch, n, L) input x (zero past nnz): every KT and KM
+    call that the four_step route, the fused_small route and the fused_small
+    inverse (of K1's output) make, as the routes record them, held against
+    its plain version on the same inputs (on the first `check_rows` rows of
+    the batch; all by default) and timed (CUDA-event means) beside its
+    bound; then K1, the two routes, K4's inverse and the fused_small inverse
+    timed in turns.  With `record`, KT's four-step pass B and KM are the
+    kernel line's times, each with its plain version's (in turns)."""
+    import dataclasses
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    batch, n, L = x.shape
+    dev = x.device
+    rows = batch if check_rows is None else check_rows
+    fs = ntt.NttTables(spec, n, "four_step").to(dev)
+    fu = ntt.NttTables(spec, n, "fused_small").to(dev)
+    y = ntt.ntt(x, spec, nnz, fs)
+    calls = {"four_step": [], "fused_small": [], "fused_small inverse": []}
+    res.compare("ntt_tile", f"{what} four_step route against K1",
+                ntt.ntt_four_step(x, spec, nnz, fs, calls=calls["four_step"]), y, quiet=True)
+    res.compare("ntt_tile", f"{what} fused_small route against K1",
+                ntt.ntt_fused_small(x, spec, nnz, fu, calls=calls["fused_small"]), y, quiet=True)
+    res.compare("mul_mod", f"{what} fused_small inverse against K4's",
+                ntt.ntt_fused_small(y, spec, None, fu, inverse=True,
+                                    calls=calls["fused_small inverse"]),
+                ntt.intt(y, spec, fu), quiet=True)
+    for route, route_calls in calls.items():
+        for call in route_calls:
+            is_km = isinstance(call, ntt.MulModCall)
+            name, label = ("mul_mod" if is_km else "ntt_tile"), route_call_label(call, L)
+            part = (dataclasses.replace(call, a=call.a[:rows * n]) if is_km
+                    else dataclasses.replace(call, x=call.x[:rows]))
+            res.compare(name, f"{what} {route} {label}, rows 0..{rows - 1}",
+                        call()[:rows * n if is_km else rows], part.plain())
+            b, by = route_call_bound(call, L)
+            k = min(event_ms(call) for _ in range(2))
+            say(f"time [{card}]: {name} {what} {route} {label}: kernel {k:.4f} ms, bound "
+                f"{b:.4f} ms ({by})")
+    routes = {"K1 (stages)": lambda: ntt.ntt(x, spec, nnz, fs),
+              "four_step": lambda: ntt.ntt_four_step(x, spec, nnz, fs),
+              "fused_small": lambda: ntt.ntt_fused_small(x, spec, nnz, fu)}
+    b, by = ntt_bound(batch, n, L, (nnz - 1).bit_length())    # the stages not pruned
+    times = {name: [event_ms(fn)] for name, fn in routes.items()}
+    for name, fn in reversed(routes.items()):
+        times[name].append(event_ms(fn))
+    say(f"time [{card}]: NTT {what} ({batch}, {n}, {L}) {spec.name} n_nonzero={nnz}: "
+        + ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
+        + f" (in turns); bound {b:.4f} ms ({by})")
+    if record:
+        pass_b = next(c for c in calls["four_step"] if c.diag)
+        km = next(c for c in calls["fused_small inverse"] if isinstance(c, ntt.MulModCall))
+        for name, call in (("ntt_tile", pass_b), ("mul_mod", km)):
+            res.bound[name] = route_call_bound(call, L)
+            timed_pair(res, name, call, call.plain,
+                       f"{what} {route_call_label(call, L)}", card, plain_runs=1)
+    inv = {"K4 inverse": lambda: ntt.intt(y, spec, fu),
+           "fused_small inverse": lambda: ntt.ntt_fused_small(y, spec, None, fu, inverse=True)}
+    t_inv = {name: [event_ms(fn, 5)] for name, fn in inv.items()}
+    for name, fn in reversed(inv.items()):
+        t_inv[name].append(event_ms(fn, 5))
+    say(f"time [{card}]: inverse NTT {what} ({batch}, {n}, {L}) {spec.name}: "
+        + ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in t_inv.items())
+        + " (in turns)")
+
+
+# --------------------------------------------------------------------------
 # golden pins and verify placement
 # --------------------------------------------------------------------------
 
@@ -472,11 +676,16 @@ def point_tensors(x: int, n_rows: int, n_per_row: int, p: int):
 
 
 def ligero_path(res: Results, dev, card: str) -> None:
-    """Ligero rho=1/4 over ft255 at 2^20: commit once, prove and verify at
-    N_POINTS points; launch counts; timings."""
+    """Ligero rho=1/4 over ft255 at 2^20 on each NTT route (stages, then
+    four_step and fused_small): commit once, prove and verify at N_POINTS
+    points, the fused_small route's decode of the committed rows against
+    K4's; roots and proof bytes equal across the routes; launch counts and
+    step times per route; the kernels and the routes timed at the commit's
+    shapes."""
     import numpy as np
     import torch
-    from lcpc_proof_of_storage_tpu_torch import LigeroEncoding, commit, prove, verify
+    from lcpc_proof_of_storage_tpu_torch import (LigeroEncoding, commit, prove,
+                                                 serialize_proof, verify)
     from lcpc_proof_of_storage_tpu_torch.fields import FT255, limbs_to_ints
     from lcpc_proof_of_storage_tpu_torch.ops import blake3, collapse, ntt
 
@@ -494,26 +703,29 @@ def ligero_path(res: Results, dev, card: str) -> None:
         f"(n_rows, n_per_row, n_cols) = ({n_rows}, {n_per_row}, {n_cols}), "
         f"{enc.get_n_degree_tests()} degree test(s), {enc.get_n_col_opens()} column openings")
 
-    out = {}
-
-    def run():
+    def run_route(enc, out):
         comm = out["comm"] = commit(coeffs, enc, device=dev)
         root = out["root"] = comm.get_root().root
+        out["blobs"] = []
         for x in points:
             outer, inner = point_tensors(x, n_rows, n_per_row, p)
             proof = prove(comm, outer, enc, transcript(root))
             value = verify(root, outer, inner, proof, enc, transcript(root), device=dev)
             if value != horner(coeff_ints, x, p):
-                raise AssertionError(f"verify returned a wrong evaluation at x={x}")
+                raise AssertionError(f"{enc.ntt}: verify returned a wrong evaluation at x={x}")
+            out["blobs"].append(serialize_proof(proof, spec))
+        if enc.ntt == "fused_small":
+            out["decoded"] = enc.decode(comm.comm)
 
-    launches = launches_of(run)
+    out = {}
+    launches = launches_of(lambda: run_route(enc, out))
     comm, root = out["comm"], out["root"]
     say(f"ligero: root {root.hex()}; {N_POINTS} proofs verified with the evaluations "
         f"computed on the host; launches {launches}")
     missing = [k for k in ("ntt", "blake3_leaves", "blake3_parents", "collapse")
                if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the Ligero path: {missing}")
+    if missing or launches["ntt_tile"] or launches["mul_mod"]:
+        raise AssertionError(f"the Ligero path's launches {launches}")
     res.add_launches(f"ligero_2^{LOG2_MAIN}", launches)
 
     padded = comm.coeffs.new_zeros((n_rows, n_cols, spec.num_limbs16))
@@ -523,15 +735,40 @@ def ligero_path(res: Results, dev, card: str) -> None:
         raise AssertionError(f"root {root.hex()} differs from the plain versions' {want.hex()}")
     say("ligero: root equals the root the plain versions compute on the card")
 
+    encs = {"stages": enc}
+    for route, kernel_of_route in (("four_step", "ntt_tile"), ("fused_small", "mul_mod")):
+        r_enc = encs[route] = LigeroEncoding.new(length, spec, rho=(1, 4), ntt=route)
+        r_out = {}
+        r_launches = launches_of(lambda: run_route(r_enc, r_out))
+        res.add_launches(f"ligero_2^{LOG2_MAIN}_{route}", r_launches)
+        if r_out["root"] != root or r_out["blobs"] != out["blobs"]:
+            raise AssertionError(f"{route}: root or proof bytes differ from the stages route's")
+        wrong_k1 = r_launches["ntt"] != 0 if route == "four_step" else r_launches["ntt"] == 0
+        if wrong_k1 or not r_launches["ntt_tile"] or not r_launches[kernel_of_route]:
+            raise AssertionError(f"{route}: launches {r_launches}")
+        say(f"ligero {route}: root and the {N_POINTS} proofs' {len(out['blobs'][0])} bincode "
+            f"bytes each identical to the stages route's; launches {r_launches}")
+        if route == "fused_small":
+            decoded = r_out["decoded"]
+            res.compare("mul_mod", f"the fused_small decode of the committed ({n_rows}, "
+                        f"{n_cols}, 16) rows against K4's inverse", decoded,
+                        ntt.intt(comm.comm, spec, enc.tables(dev)))
+            if not torch.equal(decoded[:, :n_per_row], comm.coeffs) \
+                    or decoded[:, n_per_row:].any():
+                raise AssertionError("the fused_small decode is not the committed coefficients")
+        del r_out
+        free_device(dev)
+
     outer, inner = point_tensors(points[0], n_rows, n_per_row, p)
     proof = prove(comm, outer, enc, transcript(root))
-    t_commit = cuda_ms(lambda: commit(coeffs, enc, device=dev))
-    t_prove = cuda_ms(lambda: prove(comm, outer, enc, transcript(root)))
-    t_verify = cuda_ms(lambda: verify(root, outer, inner, proof, enc, transcript(root),
-                                      device=dev))
-    say(f"time [{card}]: ligero commit {t_commit:.3f} ms, prove {t_prove:.3f} ms, "
-        f"verify {t_verify:.3f} ms at 2^{LOG2_MAIN} {spec.name} (medians of {N_TIMED}; "
-        f"{length / (t_commit / 1e3):.0f} coefficients/s committed)")
+    for route, r_enc in encs.items():
+        t_commit = cuda_ms(lambda: commit(coeffs, r_enc, device=dev))
+        t_prove = cuda_ms(lambda: prove(comm, outer, r_enc, transcript(root)))
+        t_verify = cuda_ms(lambda: verify(root, outer, inner, proof, r_enc, transcript(root),
+                                          device=dev))
+        say(f"time [{card}]: ligero {route} commit {t_commit:.3f} ms, prove {t_prove:.3f} ms, "
+            f"verify {t_verify:.3f} ms at 2^{LOG2_MAIN} {spec.name} (medians of {N_TIMED}; "
+            f"{length / (t_commit / 1e3):.0f} coefficients/s committed)")
 
     L = spec.num_limbs16
     leaves = blake3.hash_columns(comm.comm, spec)
@@ -558,6 +795,10 @@ def ligero_path(res: Results, dev, card: str) -> None:
     timed_pair(res, "collapse", lambda: collapse.collapse(comm.coeffs, tvec, spec),
                lambda: collapse.collapse_plain(comm.coeffs, tvec, spec),
                f"({n_rows}, {n_per_row}, 16) T=2", card)
+    del encs, leaves, tvec
+    free_device(dev)
+    time_ntt_routes(res, card, spec, padded, n_per_row, f"Ligero 2^{LOG2_MAIN} commit",
+                    record=True)
 
 
 def expander_bound(levels, spec) -> tuple[float, str]:
@@ -1133,6 +1374,7 @@ def streamed_host(res: Results, dev, card: str) -> None:
     if out["value"] != p_eval:
         raise AssertionError(f"2^{ST_LOG2} verify returned a wrong evaluation")
     t0, t1, t2, t3, t4 = out["t"]
+    t_commit = t1 - t0
     say(f"streamed 2^{ST_LOG2}: root {root.hex()}; proof {out['len']} bytes (bincode layout "
         f"{want_len}) verified; launches {launches}")
     say(f"time [{card}]: streamed 2^{ST_LOG2} host coefficients, keep_comm=False: commit "
@@ -1214,6 +1456,35 @@ def streamed_host(res: Results, dev, card: str) -> None:
     del syn
     free_device(dev)
 
+    # the same host coefficients committed again on the four_step route
+    t0 = time.perf_counter()
+    fs_enc = LigeroEncoding.new(length, spec, rho=(1, 4), ntt="four_step")
+    fs_enc.tables(dev)
+    t_tables = time.perf_counter() - t0
+    fs_out = {}
+
+    def run_four_step():
+        t0 = time.perf_counter()
+        fs = streamed.commit_streamed(host, fs_enc, keep_comm=False, device_coeffs=False,
+                                      device=dev)
+        fs_out["root"] = fs.get_root().root
+        torch.cuda.synchronize()
+        fs_out["t"] = time.perf_counter() - t0
+
+    fs_launches = launches_of(run_four_step)
+    res.add_launches(f"streamed_host_2^{ST_LOG2}_four_step", fs_launches)
+    if fs_out["root"] != root:
+        raise AssertionError(f"four_step root {fs_out['root'].hex()} differs from the stages "
+                             f"route's {root.hex()}")
+    if fs_launches["ntt"] or not fs_launches["ntt_tile"]:
+        raise AssertionError(f"four_step 2^{ST_LOG2} launches {fs_launches}")
+    say(f"time [{card}]: streamed 2^{ST_LOG2} host coefficients, keep_comm=False, commit on "
+        f"the four_step route {fs_out['t']:.3f} s beside the stages route's (K1) "
+        f"{t_commit:.3f} s, root equal (its tables {t_tables:.2f} s on the host, set-up); "
+        f"launches {fs_launches}; {device_memory_line(dev)}")
+    del fs_enc
+    free_device(dev)
+
     # the kernels at this path's shapes: one 128-row collapse batch of the
     # prove (16-bit, T=2, accumulator), one interior 32-row commit batch's
     # chunk CVs, the merge of all 65 chunks of the 2^20 columns
@@ -1242,7 +1513,13 @@ def streamed_host(res: Results, dev, card: str) -> None:
     say(f"time [{card}]: K1 through the Ligero encode of one interior 2^{ST_LOG2} commit batch "
         f"({rows_b}, {n_cols}, 16), n_nonzero {n_per_row}: {t_k1:.3f} ms "
         f"({len(streamed._row_batches(n_rows, spec.repr_bytes, rows_b))} batches a commit)")
+    padded = rows32.new_zeros((rows_b, n_cols, L))
+    padded[:, :n_per_row] = rows32
     del rows32
+    time_ntt_routes(res, card, spec, padded, n_per_row, f"one 2^{ST_LOG2} commit batch",
+                    check_rows=2)
+    del padded
+    free_device(dev)
     total = -(-(32 + n_rows * spec.repr_bytes) // 1024)
     cvs = torch.zeros((n_cols, total, 8), dtype=torch.int32, device=dev)
     cvs_plain = cvs.clone()
@@ -1763,11 +2040,18 @@ KERNEL_INFO = {
                          "lcpc_proof_of_storage_tpu/ops/blake3_jax.py:183"),
     "expander": ("lcpc_proof_of_storage_tpu_torch/csrc/expander.cu",
                  "lcpc_proof_of_storage_tpu/ops/expander_pallas.py:388"),
+    "ntt_tile": ("lcpc_proof_of_storage_tpu_torch/csrc/ntt_tile.cu",
+                 "lcpc_proof_of_storage_tpu/ops/ntt_pallas2.py:435; "
+                 "lcpc_proof_of_storage_tpu/ops/ntt_pallas.py:308"),
+    "mul_mod": ("lcpc_proof_of_storage_tpu_torch/csrc/ntt_tile.cu",
+                "lcpc_proof_of_storage_tpu/ops/ntt_pallas.py:476; "
+                "lcpc_proof_of_storage_tpu/ops/ntt_pallas.py:367"),
 }
 
 
 PHASES = (
     ("kernels", lambda res, dev, card: check_kernels(res, dev)),
+    ("ntt_routes_kernels", lambda res, dev, card: check_ntt_route_kernels(res, dev)),
     ("expander", lambda res, dev, card: check_expander(res, dev)),
     ("golden", lambda res, dev, card: check_golden(dev)),
     ("verify", lambda res, dev, card: check_verify(dev)),

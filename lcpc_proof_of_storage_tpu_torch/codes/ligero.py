@@ -1,9 +1,20 @@
 """Ligero (Reed-Solomon) encoding for the 2d polynomial commitment.
 
 Counterpart of ``lcpc_proof_of_storage_tpu/codes/ligero.py``: the same
-dimension solver and soundness formulas (lcpc-ligero-pc/src/lib.rs), with
-the row encode going through :func:`ops.ntt.ntt` (kernel K1 on CUDA) and
-the decode through :func:`ops.ntt.intt` (kernel K4's inverse entry).
+dimension solver and soundness formulas (lcpc-ligero-pc/src/lib.rs).  The
+row transform is the encoding's ``ntt`` route, one of ``ops.ntt.ROUTES``:
+
+  * ``"stages"`` (default): encode by :func:`ops.ntt.ntt` (kernel K1 on
+    CUDA), decode by :func:`ops.ntt.intt` (K4's inverse entry);
+  * ``"four_step"``: encode by :func:`ops.ntt.ntt_four_step` (the JAX
+    package's ``LCPC_NTT_FOURSTEP=1``), decode by :func:`ops.ntt.intt`, as
+    the reference's four-step is forward only;
+  * ``"fused_small"``: encode and decode by :func:`ops.ntt.ntt_fused_small`
+    (the reference's ``LCPC_NTT_KERNEL=v1``).
+
+Every route gives the same codewords, so roots and proofs do not depend on
+it.  The route is a field of the encoding, as the reference's mesh is: no
+environment variable chooses it.
 
   * n_col_opens = ceil(-lambda / log2((1+rho)/2))          (lib.rs:61-64)
   * n_degree_tests via lcpc-2d's formula                    (lib.rs:66-68)
@@ -21,7 +32,7 @@ import torch
 
 from ..core.encoding import LcEncoding, n_degree_tests, next_power_of_two
 from ..fields.field import FieldSpec
-from ..ops.ntt import NttTables, intt, ntt
+from ..ops.ntt import ROUTES, NttTables, intt, ntt, ntt_four_step, ntt_fused_small
 
 LAMBDA = 128
 
@@ -32,32 +43,38 @@ class LigeroEncoding(LcEncoding):
     The encoding owns the NTT tables of its row length, an ``nn.Module``
     built on the CPU and copied once to each other device it encodes on
     (:meth:`tables`).  :meth:`encode` runs on the device of its input, so
-    one encoding serves callers on several devices and no call moves it."""
+    one encoding serves callers on several devices and no call moves it.
+    ``ntt`` names the row transform's route (module docstring)."""
 
     def __init__(self, spec: FieldSpec, n_per_row: int, n_cols: int,
-                 rho: tuple[int, int] = (1, 2)):
+                 rho: tuple[int, int] = (1, 2), ntt: str = "stages"):
         if not self._dims_ok(n_per_row, n_cols):
             raise ValueError(f"bad Ligero dims ({n_per_row}, {n_cols})")
         if n_cols > (1 << spec.two_adicity):
             raise ValueError("no NTT subgroup of this size")
+        if ntt not in ROUTES:
+            raise ValueError(f"ntt must be one of {ROUTES}, got {ntt!r}")
         self.spec = spec
         self.rho_num, self.rho_den = rho
         self.n_per_row = n_per_row
         self.n_cols = n_cols
-        self.ntt_tables = NttTables(spec, n_cols)
+        self.ntt = ntt
+        self.ntt_tables = NttTables(spec, n_cols, ntt)
         self._tables_on = {self.ntt_tables.device: self.ntt_tables}
 
     # -- constructors --------------------------------------------------------
     @classmethod
-    def new(cls, length: int, spec: FieldSpec, rho: tuple[int, int] = (1, 2)):
+    def new(cls, length: int, spec: FieldSpec, rho: tuple[int, int] = (1, 2),
+            ntt: str = "stages"):
         dims = cls._get_dims(length, spec, rho)
         if dims is None:
             raise ValueError("no valid dims")
         _, n_per_row, n_cols = dims
-        return cls(spec, n_per_row, n_cols, rho)
+        return cls(spec, n_per_row, n_cols, rho, ntt)
 
     @classmethod
-    def new_ml(cls, n_vars: int, spec: FieldSpec, rho: tuple[int, int] = (1, 2)):
+    def new_ml(cls, n_vars: int, spec: FieldSpec, rho: tuple[int, int] = (1, 2),
+               ntt: str = "stages"):
         n_monomials = 1 << n_vars
         dims = cls._get_dims(n_monomials, spec, rho)
         if dims is None:
@@ -66,12 +83,12 @@ class LigeroEncoding(LcEncoding):
         if (n_rows & (n_rows - 1) or n_per_row & (n_per_row - 1)
                 or n_rows * n_per_row != n_monomials):
             raise ValueError("multilinear dims must be powers of two")
-        return cls(spec, n_per_row, n_cols, rho)
+        return cls(spec, n_per_row, n_cols, rho, ntt)
 
     @classmethod
     def new_from_dims(cls, n_per_row: int, n_cols: int, spec: FieldSpec,
-                      rho: tuple[int, int] = (1, 2)):
-        return cls(spec, n_per_row, n_cols, rho)
+                      rho: tuple[int, int] = (1, 2), ntt: str = "stages"):
+        return cls(spec, n_per_row, n_cols, rho, ntt)
 
     # -- soundness math ------------------------------------------------------
     @classmethod
@@ -130,11 +147,18 @@ class LigeroEncoding(LcEncoding):
             raise ValueError(f"encode: rows of {width} coefficients, code has {self.n_cols}")
         padded = rows.new_zeros((batch, self.n_cols, L))
         padded[:, :width] = rows
+        if self.ntt == "four_step":
+            return ntt_four_step(padded, self.spec, width, self.tables(rows.device))
+        if self.ntt == "fused_small":
+            return ntt_fused_small(padded, self.spec, width, self.tables(rows.device))
         return ntt(padded, self.spec, width, self.tables(rows.device))
 
     def decode(self, rows: torch.Tensor) -> torch.Tensor:
         """Inverse NTT of (batch, n_cols, L) codewords on the rows' device:
         all n_cols coefficients (the PoS read path truncates them)."""
+        if self.ntt == "fused_small":
+            return ntt_fused_small(rows, self.spec, tables=self.tables(rows.device),
+                                   inverse=True)
         return intt(rows, self.spec, self.tables(rows.device))
 
     def get_dims(self, length: int) -> tuple[int, int, int]:
@@ -157,4 +181,4 @@ class LigeroEncoding(LcEncoding):
 
     def __repr__(self):
         return (f"LigeroEncoding({self.spec.name}, n_per_row={self.n_per_row}, "
-                f"n_cols={self.n_cols}, rho={self.rho_num}/{self.rho_den})")
+                f"n_cols={self.n_cols}, rho={self.rho_num}/{self.rho_den}, ntt={self.ntt})")

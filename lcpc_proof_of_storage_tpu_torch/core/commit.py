@@ -230,12 +230,14 @@ def merkle_tree_device(leaves: torch.Tensor, n_cols: int) -> torch.Tensor:
 
 
 def default_device(device=None) -> torch.device:
-    """`device` if given, else the current CUDA card where there is one, else
-    the CPU: the entry points run on the card unless asked for the CPU."""
+    """`device` if given, else the current CUDA card: the entry points run on
+    the card unless asked for the CPU with ``device="cpu"``.  With no card
+    and no device this raises; nothing falls back to the CPU by itself."""
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() \
-        else torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass device='cpu' to run on the host")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def commit(coeffs, enc: LcEncoding, device=None) -> LcCommit:
@@ -505,7 +507,8 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
     """lcpc-2d/src/lib.rs:862-982.  Returns the evaluation <inner, p_eval>.
 
     The proof lives on the host; its checks run on `device` (default:
-    :func:`default_device`, the card where there is one)."""
+    :func:`default_device`: the current CUDA card; without one it raises, so
+    pass ``device="cpu"`` for the host)."""
     dev = default_device(device)
     spec = enc.spec
     lf = limb_field(spec)

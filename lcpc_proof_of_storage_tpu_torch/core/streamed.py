@@ -140,7 +140,8 @@ def commit_streamed(coeffs, enc: LcEncoding, target_batch_rows: int | None = Non
                     device=None) -> LcCommit:
     """:func:`~.commit.commit` with a row-batched encode and incremental
     column hashing, on `device` (default: the device of a CUDA coefficient
-    tensor, else the card where there is one).
+    tensor, else the current CUDA card; without one it raises unless given
+    ``device="cpu"``).
 
     coeffs: python ints, an (n, L) limb array or tensor (16-bit limbs stay
     16-bit), or :class:`SyntheticCoeffs`.

@@ -36,106 +36,22 @@
 // 0.348 ms (0.77 TB/s) and the whole transform 6.4 ms, of which the
 // unpack is 0.84 ms.  The stages run well below the bandwidth bound; the
 // likely bound is the 64-bit carry chains of the multi-word arithmetic
-// (not measured alone).  Fusing the stages of a row tile
-// in shared memory (the TPU kernel's four-step split) and 32-bit carry
-// arithmetic (add.cc / madc) are the known next steps.
+// (not measured alone).  The four_step and fused_small routes keep a tile
+// in shared memory across its stages (ntt_tile.cu KT); PERF.md sets their
+// times beside K1's.  32-bit carry arithmetic (add.cc / madc) is the other
+// known next step.
+//
+// lcpc_ntt_stages runs K1's stage launches from a given stage on, then its
+// unpack, on words another kernel has already ordered and partly
+// transformed: the fused_small route's stages with half >= its tile
+// (ops/ntt_pallas.py _stage_call, K6).  It is counted as K1.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "montgomery.cuh"
+
 namespace {
-
-template <int W>
-struct Mod {
-    uint32_t p[W];
-    uint32_t pinv;  // -p^{-1} mod 2^32
-};
-
-template <int W>
-__device__ __forceinline__ void add_mod(uint32_t r[W], const uint32_t a[W],
-                                        const uint32_t b[W], const Mod<W>& m) {
-    uint32_t s[W];
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        c = (uint64_t)a[i] + b[i] + (c >> 32);
-        s[i] = (uint32_t)c;
-    }
-    uint32_t carry = (uint32_t)(c >> 32);
-    uint32_t d[W];
-    int64_t br = 0;
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        int64_t v = (int64_t)s[i] - m.p[i] - br;
-        d[i] = (uint32_t)v;
-        br = v < 0;
-    }
-    bool ge = carry || br == 0;
-#pragma unroll
-    for (int i = 0; i < W; ++i) r[i] = ge ? d[i] : s[i];
-}
-
-template <int W>
-__device__ __forceinline__ void sub_mod(uint32_t r[W], const uint32_t a[W],
-                                        const uint32_t b[W], const Mod<W>& m) {
-    uint32_t d[W];
-    int64_t br = 0;
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        int64_t v = (int64_t)a[i] - b[i] - br;
-        d[i] = (uint32_t)v;
-        br = v < 0;
-    }
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        c = (uint64_t)d[i] + (br ? m.p[i] : 0u) + (c >> 32);
-        r[i] = (uint32_t)c;
-    }
-}
-
-// Montgomery product a * b * 2^(-32W) mod p (CIOS), canonical for a, b < p.
-template <int W>
-__device__ __forceinline__ void mont_mul(uint32_t r[W], const uint32_t a[W],
-                                         const uint32_t b[W], const Mod<W>& m) {
-    uint32_t t[W + 2];
-#pragma unroll
-    for (int i = 0; i < W + 2; ++i) t[i] = 0;
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = 0; j < W; ++j) {
-            c = (uint64_t)a[j] * b[i] + t[j] + (c >> 32);
-            t[j] = (uint32_t)c;
-        }
-        uint64_t s = (uint64_t)t[W] + (c >> 32);
-        t[W] = (uint32_t)s;
-        t[W + 1] = (uint32_t)(s >> 32);
-        uint32_t q = t[0] * m.pinv;
-        c = (uint64_t)q * m.p[0] + t[0];
-#pragma unroll
-        for (int j = 1; j < W; ++j) {
-            c = (uint64_t)q * m.p[j] + t[j] + (c >> 32);
-            t[j - 1] = (uint32_t)c;
-        }
-        s = (uint64_t)t[W] + (c >> 32);
-        t[W - 1] = (uint32_t)s;
-        t[W] = t[W + 1] + (uint32_t)(s >> 32);
-    }
-    // t < 2p: subtract p once if t >= p
-    uint32_t d[W];
-    int64_t br = 0;
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        int64_t v = (int64_t)t[i] - m.p[i] - br;
-        d[i] = (uint32_t)v;
-        br = v < 0;
-    }
-    bool ge = t[W] != 0 || br == 0;
-#pragma unroll
-    for (int i = 0; i < W; ++i) r[i] = ge ? d[i] : t[i];
-}
 
 // (batch, n, 2W) int32 limbs -> (batch, n, W) words, bit-reversed, tail zeroed
 template <int W>
@@ -206,11 +122,6 @@ __global__ void ntt_unpack(const uint32_t* __restrict__ x, int32_t* __restrict__
 // (batch, n, W) words -> (batch, n, 2W) int32 limbs of x * s mod p, where
 // s holds n^-1 * 2^(32W) mod p (so mont_mul gives x * n^-1)
 template <int W>
-struct Words {
-    uint32_t w[W];
-};
-
-template <int W>
 __global__ void ntt_unpack_scale(const uint32_t* __restrict__ x, int32_t* __restrict__ out,
                                  Mod<W> m, Words<W> s, int64_t total) {
     int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -232,15 +143,6 @@ inline unsigned blocks_for(int64_t total) {
     return (unsigned)((total + kThreads - 1) / kThreads);
 }
 
-template <int W>
-Mod<W> make_mod(const uint32_t* p_host) {
-    Mod<W> m;
-    for (int i = 0; i < W; ++i) m.p[i] = p_host[i];
-    uint32_t inv = m.p[0];  // Newton: inv = p0^{-1} mod 2^32
-    for (int i = 0; i < 5; ++i) inv *= 2u - m.p[0] * inv;
-    m.pinv = 0u - inv;
-    return m;
-}
 
 template <int W>
 int ntt_forward(const int32_t* in, int32_t* out, uint32_t* work, const uint32_t* tw,
@@ -255,6 +157,21 @@ int ntt_forward(const int32_t* in, int32_t* out, uint32_t* work, const uint32_t*
     for (int s = 0; s < log_n; ++s)
         ntt_stage<W><<<blocks_for(flies), kThreads, 0, stream>>>(work, tw, log_n, s, m,
                                                                  flies);
+    ntt_unpack<W><<<blocks_for(elems), kThreads, 0, stream>>>(work, out, elems);
+    return (int)cudaGetLastError();
+}
+
+// K1's stages s0 .. log_n-1 over (batch, n, W) words already in the
+// transform's order, in place, then its unpack: the fused_small route's
+// stages with half >= its tile (ntt_pallas.py _stage_call).
+template <int W>
+int ntt_stages(uint32_t* work, int32_t* out, const uint32_t* tw, int batch, int log_n,
+               int s0, const uint32_t* p_host, cudaStream_t stream) {
+    Mod<W> m = make_mod<W>(p_host);
+    int64_t elems = (int64_t)batch << log_n;
+    int64_t flies = elems / 2;
+    for (int s = s0; s < log_n; ++s)
+        ntt_stage<W><<<blocks_for(flies), kThreads, 0, stream>>>(work, tw, log_n, s, m, flies);
     ntt_unpack<W><<<blocks_for(elems), kThreads, 0, stream>>>(work, out, elems);
     return (int)cudaGetLastError();
 }
@@ -321,6 +238,25 @@ int lcpc_ntt_inverse(const void* in, void* out, void* work, const void* tw_inv, 
         case 4: return ntt_inverse<4>(i, o, wk, t, batch, log_n, p, s, st);
         case 6: return ntt_inverse<6>(i, o, wk, t, batch, log_n, p, s, st);
         case 8: return ntt_inverse<8>(i, o, wk, t, batch, log_n, p, s, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// work: (batch, 2^log_n, W) words, transformed in place by the stages s0 ..
+// log_n-1; out: (batch, 2^log_n, 2W) int32 limbs; tw: as lcpc_ntt_forward's
+// (or lcpc_ntt_inverse's).  Returns the cudaGetLastError() code.
+int lcpc_ntt_stages(void* work, void* out, const void* tw, int batch, int log_n, int s0,
+                    int W, const void* p_host, void* stream) {
+    auto wk = static_cast<uint32_t*>(work);
+    auto o = static_cast<int32_t*>(out);
+    auto t = static_cast<const uint32_t*>(tw);
+    auto p = static_cast<const uint32_t*>(p_host);
+    auto st = static_cast<cudaStream_t>(stream);
+    switch (W) {
+        case 2: return ntt_stages<2>(wk, o, t, batch, log_n, s0, p, st);
+        case 4: return ntt_stages<4>(wk, o, t, batch, log_n, s0, p, st);
+        case 6: return ntt_stages<6>(wk, o, t, batch, log_n, s0, p, st);
+        case 8: return ntt_stages<8>(wk, o, t, batch, log_n, s0, p, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -106,12 +106,15 @@ class Kernel:
     """One C entry point of the library, with its launch count.
 
     ``launches`` counts the calls that launched the kernel; a caller that
-    wants the launches of one run sets it to 0 first."""
+    wants the launches of one run sets it to 0 first.  An entry that
+    launches another entry's kernels (``counts_as``) adds to that entry's
+    count instead."""
 
-    def __init__(self, symbol: str, argtypes: list):
+    def __init__(self, symbol: str, argtypes: list, counts_as: "Kernel | None" = None):
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.counts_as = counts_as
         self._fn = None
 
     def __call__(self, *args) -> None:
@@ -124,13 +127,21 @@ class Kernel:
         if rc != 0:
             msg = library().lcpc_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        (self.counts_as or self).launches += 1
 
 
 # csrc/ntt.cu: in, out, work, tw, batch, log_n, n_nonzero, W, p_host, stream
 NTT_FORWARD = Kernel("lcpc_ntt_forward", [P, P, P, P, I, I, I, I, P, P])
 # csrc/ntt.cu: in, out, work, tw_inv, batch, log_n, W, p_host, n_inv_mont, stream
 NTT_INVERSE = Kernel("lcpc_ntt_inverse", [P, P, P, P, I, I, I, P, P, P])
+# csrc/ntt.cu: work, out, tw, batch, log_n, s0, W, p_host, stream.  K1's own stage
+# launches from s0 on and its unpack, for the fused_small route: counted as K1.
+NTT_STAGES = Kernel("lcpc_ntt_stages", [P, P, P, I, I, I, I, P, P], counts_as=NTT_FORWARD)
+# csrc/ntt_tile.cu: in, out, tw, diag, count, log_n, s0, s1, in_limbs, out_limbs, W, p_host,
+# stream
+NTT_TILE = Kernel("lcpc_ntt_tile", [P, P, P, P, I, I, I, I, I, I, I, P, P])
+# csrc/ntt_tile.cu: a, b, out, n, b_rows, W, p_host, r2_host, stream
+MUL_MOD = Kernel("lcpc_mul_mod", [P, P, P, I, I, I, P, P, P])
 # csrc/blake3.cu: in, out, n_rows, n_cols, W, big_endian, stream
 BLAKE3_LEAVES = Kernel("lcpc_blake3_leaves", [P, P, I, I, I, I, P])
 # csrc/blake3.cu: nodes, out, n_parents, stream
@@ -154,7 +165,8 @@ EXPANDER = Kernel("lcpc_expander_matvec", [P, P, P, P, P, I, I, I, I, P, P, I, P
 KERNELS = {"ntt": NTT_FORWARD, "ntt_inverse": NTT_INVERSE, "blake3_leaves": BLAKE3_LEAVES,
            "blake3_parents": BLAKE3_PARENTS, "blake3_chunk_cvs": BLAKE3_CHUNK_CVS,
            "blake3_merge_cvs": BLAKE3_MERGE_CVS, "collapse": COLLAPSE,
-           "collapse_acc": COLLAPSE_ACC, "expander": EXPANDER}
+           "collapse_acc": COLLAPSE_ACC, "expander": EXPANDER, "ntt_tile": NTT_TILE,
+           "mul_mod": MUL_MOD}
 
 
 def reset_launch_counts() -> None:

@@ -13,9 +13,41 @@ inverse gives the coefficients back from the evaluations.
 :func:`ntt_plain` / :func:`intt_plain`, a CUDA tensor to the kernel.
 :func:`encode_rows` and :func:`decode_rows` are the Ligero row encode and
 its inverse built on them.
+
+Two more routes compute the same transforms, bit-equal, for the Ligero
+encoding's ``ntt=`` choice (``codes/ligero.py``):
+
+* :func:`ntt_four_step` (forward only) follows the JAX package's
+  ``ops/ntt_pallas2.py ntt_four_step`` in its default ``xpose`` mode: n =
+  n1 * n2, one pass of packed n2-point sub-NTTs, one pass of n1-point
+  sub-NTTs after the diagonal twiddle w_n^(j1 k2) (K4f,
+  ``_in_tile_call_mul``), with the permutations between them as torch
+  index_select / transpose glue.  Outside the reference's window 1024 < n
+  <= 2^20 (``_fs_split``) it is :func:`ntt`, as the reference's dispatch.
+* :func:`ntt_fused_small` (forward and inverse) follows ``ops/ntt_pallas.py
+  ntt_pallas`` (K6): every stage with half below the tile in one pass
+  (``_fused_small_call``), then one launch a stage above it
+  (``_stage_call``), then the n^-1 product for the inverse
+  (``_scale_call``).
+
+Both take n_nonzero as the reference's routes do, as a promise that the
+positions at or past it are zero (the Ligero encode's padding), and skip
+the stages that would only duplicate values.  Both run on packed 32-bit
+words (W = L/2 a value) between their steps and
+share one orchestration between the devices: only the calls to the tile
+kernel KT (:func:`ntt_tile_stages`, ``csrc/ntt_tile.cu``), to K1's stage
+launches (:func:`ntt_stages`) and to the modular product KM
+(:func:`mul_mod`) dispatch, to the kernel for a CUDA tensor and to the plain
+version for a CPU tensor.  Given a ``calls`` list, a route appends each KT
+and KM call it makes (:class:`TileCall`, :class:`MulModCall`: the inputs and
+arguments), so a caller can run that call again, or its plain version, on
+the very inputs the route gave it.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -59,19 +91,88 @@ def _ntt_tables(spec: FieldSpec, n: int):
             for v in (vals, inv)]
 
 
+ROUTES = ("stages", "four_step", "fused_small")
+FS_MAX = 1024        # the four-step's largest sub-length (ntt_pallas2.py _TILE2)
+# fused_small's tile: the reference's v1 tile (ntt_pallas.py _TILE), 11 stages in
+# one pass; its 64 KB of words at W = 8 leave room for three blocks an SM
+FUSED_TILE = 2048
+TILE_MAX = 4096      # the largest tile KT's shared memory holds at W = 8 (128 KB)
+
+
+def _fs_split(n: int) -> tuple[int, int] | None:
+    """(n1, n2), n1 * n2 = n, both <= FS_MAX, n1 <= n2; None outside the
+    four-step's window 1024 < n <= 2^20 (ntt_pallas2.py _fs_split)."""
+    if n <= FS_MAX or n > FS_MAX * FS_MAX:
+        return None
+    n1 = 1 << ((n.bit_length() - 1) // 2)
+    return n1, n // n1
+
+
+def _skip_for(n: int, n_nonzero: int | None) -> int:
+    """Stages that only duplicate values when positions >= n_nonzero are zero:
+    log2(n / np2(n_nonzero)) (ntt_pallas.py / ntt_pallas2.py _skip_for)."""
+    if n_nonzero is not None and 0 < n_nonzero < n:
+        np2 = 1 << (n_nonzero - 1).bit_length()
+        return (n // np2).bit_length() - 1
+    return 0
+
+
+def _words(limbs: np.ndarray) -> np.ndarray:
+    """(..., L) 16-bit limbs -> (..., W) uint32 words, least significant first."""
+    limbs = limbs.astype(np.int64)
+    return (limbs[..., 0::2] | (limbs[..., 1::2] << 16)).astype(np.uint32)
+
+
+def _neg_limbs(limbs: np.ndarray, spec: FieldSpec) -> np.ndarray:
+    """p - v for (m, L) canonical nonzero limbs v."""
+    L = spec.num_limbs16
+    p = [(spec.modulus >> (16 * i)) & 0xFFFF for i in range(L)]
+    out = np.empty(limbs.shape, np.int64)
+    borrow = np.zeros(limbs.shape[0], np.int64)
+    for i in range(L):
+        d = p[i] - limbs[:, i].astype(np.int64) - borrow
+        borrow = (d < 0).astype(np.int64)
+        out[:, i] = d + (borrow << 16)
+    return out
+
+
+def _four_step_twiddles(spec: FieldSpec, n: int, n1: int, tw: np.ndarray, mont: np.ndarray):
+    """The diagonal twiddle of the four-step's second pass at lane h*n1 + u:
+    w_n^(rev1[u] * h) (ntt_pallas2.py _fs_tables_np), as (n, L) limbs and as
+    (n, W) Montgomery words.  Gathered from the w^j tables of j < n/2, with
+    w^(j + n/2) = -w^j."""
+    rev1 = _bit_reverse_perm(n1)
+    e = ((np.arange(n // n1, dtype=np.int64)[:, None] * rev1[None, :]) % n).reshape(-1)
+    mont_limbs = np.empty((mont.shape[0], 2 * mont.shape[1]), np.int64)
+    m = mont.view(np.uint32).astype(np.int64)
+    mont_limbs[:, 0::2], mont_limbs[:, 1::2] = m & 0xFFFF, m >> 16
+    full = np.concatenate([tw.astype(np.int64), _neg_limbs(tw, spec)])
+    full_mont = np.concatenate([mont_limbs, _neg_limbs(mont_limbs, spec)])
+    return full[e].astype(np.int32), _words(full_mont[e]).view(np.int32)
+
+
 class NttTables(torch.nn.Module):
     """Twiddle tables of one transform size, as buffers that move with the
     module: ``tw`` / ``tw_inv`` (w^j / w^-j limbs) for the plain versions,
     ``tw_mont`` / ``tw_inv_mont`` (their Montgomery words) for the kernels,
     and ``n_inv`` (n^-1 mod p as limbs).  ``p_words`` and ``n_inv_mont``
-    (n^-1 in Montgomery form) are host words the kernels take by value."""
+    (n^-1 in Montgomery form) are host words the kernels take by value.
 
-    def __init__(self, spec: FieldSpec, n: int):
+    ``route`` adds what one of :data:`ROUTES` needs besides: ``rev`` (the
+    bit-reversal of n) for ``fused_small``; ``rev1`` / ``rev2`` (those of n1
+    and n2) and the diagonal twiddle ``fs_tw`` / ``fs_tw_mont`` ((n, L) limbs
+    and (n, W) Montgomery words) for ``four_step`` inside its window.  Every
+    sub-length's stage twiddles are entries of ``tw_mont``: w_m = w_n^(n/m)."""
+
+    def __init__(self, spec: FieldSpec, n: int, route: str = "stages"):
         super().__init__()
         if n < 2 or n & (n - 1):
             raise ValueError(f"NTT size must be a power of two >= 2, got {n}")
+        if route not in ROUTES:
+            raise ValueError(f"NTT route must be one of {ROUTES}, got {route!r}")
         self.spec = spec
         self.n = n
+        self.route = route
         (tw, mont), (tw_inv, mont_inv) = _ntt_tables(spec, n)
         self.register_buffer("tw", torch.from_numpy(tw))
         self.register_buffer("tw_mont", torch.from_numpy(np.ascontiguousarray(mont)))
@@ -85,23 +186,42 @@ class NttTables(torch.nn.Module):
         self.p_words = np.array([(p >> (32 * i)) & 0xFFFFFFFF for i in range(L // 2)],
                                 dtype=np.uint32)
         self.n_inv_mont = _mont_words([n_inv], spec)[0]
+        if route == "fused_small":
+            self.register_buffer("rev", torch.from_numpy(_bit_reverse_perm(n)))
+        split = _fs_split(n)
+        if route == "four_step" and split is not None:
+            n1, n2 = split
+            self.register_buffer("rev1", torch.from_numpy(_bit_reverse_perm(n1)))
+            self.register_buffer("rev2", torch.from_numpy(_bit_reverse_perm(n2)))
+            fs_tw, fs_mont = _four_step_twiddles(spec, n, n1, tw, mont)
+            self.register_buffer("fs_tw", torch.from_numpy(fs_tw))
+            self.register_buffer("fs_tw_mont", torch.from_numpy(np.ascontiguousarray(fs_mont)))
 
     @property
     def device(self) -> torch.device:
         return self.tw.device
 
 
-def _ntt_core(x: torch.Tensor, lf: LimbField, tw: torch.Tensor) -> torch.Tensor:
-    """Radix-2 DIT stages on bit-reversed (batch, n, L) input, int64."""
-    batch, n, L = x.shape
-    log_n = n.bit_length() - 1
-    for s in range(log_n):
-        half = 1 << s
-        xv = x.reshape(batch, n // (2 * half), 2, half, L)
-        a, b = xv[:, :, 0], xv[:, :, 1]
-        w = tw[torch.arange(half, device=x.device) << (log_n - 1 - s)]
-        y = lf.mul(b, w)
-        x = torch.stack([lf.add(a, y), lf.sub(a, y)], dim=2).reshape(batch, n, L)
+def _dit_stage(x: torch.Tensor, lf: LimbField, tw: torch.Tensor, s: int,
+               log_n: int) -> torch.Tensor:
+    """One radix-2 DIT stage (half = 2^s) over aligned runs of (batch, m, L)
+    int64 values, m a multiple of 2^(s+1); tw holds the w^j (or w^-j) of a
+    2^log_n transform, so the stage's twiddle k is entry k << (log_n-1-s)."""
+    batch, m, L = x.shape
+    half = 1 << s
+    xv = x.reshape(batch, m // (2 * half), 2, half, L)
+    a, b = xv[:, :, 0], xv[:, :, 1]
+    w = tw[torch.arange(half, device=x.device) << (log_n - 1 - s)]
+    y = lf.mul(b, w)
+    return torch.stack([lf.add(a, y), lf.sub(a, y)], dim=2).reshape(batch, m, L)
+
+
+def _ntt_core(x: torch.Tensor, lf: LimbField, tw: torch.Tensor, s0: int = 0) -> torch.Tensor:
+    """Radix-2 DIT stages s0 .. log2(n)-1 on bit-reversed (batch, n, L)
+    input, int64."""
+    log_n = x.shape[1].bit_length() - 1
+    for s in range(s0, log_n):
+        x = _dit_stage(x, lf, tw, s, log_n)
     return x
 
 
@@ -219,12 +339,313 @@ def _check_args(x: torch.Tensor, spec: FieldSpec, n_nonzero: int | None) -> int:
     return n_nonzero
 
 
-def _tables_for(spec: FieldSpec, n: int, x: torch.Tensor,
-                tables: NttTables | None) -> NttTables:
+def _tables_for(spec: FieldSpec, n: int, x: torch.Tensor, tables: NttTables | None,
+                route: str = "stages") -> NttTables:
     if tables is None:
-        return NttTables(spec, n).to(x.device)
+        return NttTables(spec, n, route).to(x.device)
     if tables.n != n or tables.spec != spec:
         raise ValueError("ntt: tables are for another field or size")
     if tables.device != x.device:
         raise ValueError(f"ntt: tables on {tables.device}, input on {x.device}")
+    if route != "stages" and tables.route != route:
+        raise ValueError(f"ntt: tables built for route {tables.route!r}, not {route!r}")
     return tables
+
+
+# --------------------------------------------------------------------------
+# the four_step and fused_small routes
+# --------------------------------------------------------------------------
+
+def pack_words(limbs: torch.Tensor) -> torch.Tensor:
+    """(..., L) canonical 16-bit limbs -> (..., W) int32 bit patterns of the
+    uint32 words (the kernels' layout)."""
+    v = limbs[..., 0::2].to(torch.int64) | (limbs[..., 1::2].to(torch.int64) << 16)
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+def unpack_words(words: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_words`: (..., W) words -> (..., L) int32 limbs."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).flatten(-2).to(torch.int32)
+
+
+def _limbs64(x: torch.Tensor, L: int) -> torch.Tensor:
+    """Limbs (..., L) or words (..., L/2) -> int64 limbs (..., L)."""
+    if x.shape[-1] == L:
+        return x.to(torch.int64)
+    if x.shape[-1] == L // 2:
+        return unpack_words(x).to(torch.int64)
+    raise ValueError(f"expected (..., {L}) limbs or (..., {L // 2}) words, got {tuple(x.shape)}")
+
+
+def _check_tile_args(x: torch.Tensor, tables: NttTables, s0: int, s1: int, diag: bool) -> int:
+    """The number of values in x; raises on stages or shapes KT does not take."""
+    L = tables.spec.num_limbs16
+    if x.shape[-1] not in (L, L // 2):
+        raise ValueError(f"ntt_tile: expected (..., {L}) limbs or (..., {L // 2}) words, "
+                         f"got {tuple(x.shape)}")
+    count = x.numel() // x.shape[-1]
+    if not 0 <= s0 <= s1 or (1 << s1) > min(TILE_MAX, tables.n) or count % (1 << s1):
+        raise ValueError(f"ntt_tile: stages {s0}..{s1} do not tile {count} values "
+                         f"(tables of n = {tables.n}, tiles up to {TILE_MAX})")
+    if diag and (not hasattr(tables, "fs_tw") or count % tables.n):
+        raise ValueError("ntt_tile: the twiddle prologue needs four_step tables and whole rows")
+    return count
+
+
+def ntt_tile_stages_plain(x: torch.Tensor, tables: NttTables, s0: int, s1: int,
+                          diag: bool = False, inverse: bool = False,
+                          out_limbs: bool = False) -> torch.Tensor:
+    """Plain version of KT (any device): on runs of 2^s1 consecutive values of
+    x (limbs (..., L) or words (..., W)), optionally multiply each value by
+    the four-step's diagonal twiddle of its position in its row of n
+    (``diag``), then run the radix-2 DIT stages s0 .. s1-1 with the w^j (or
+    w^-j) twiddles.  Returns words, or limbs if ``out_limbs``."""
+    count = _check_tile_args(x, tables, s0, s1, diag)
+    spec = tables.spec
+    L = spec.num_limbs16
+    lf = limb_field(spec)
+    y = _limbs64(x, L).reshape(count, L)
+    if diag:
+        y = lf.mul(y.reshape(-1, tables.n, L), tables.fs_tw).reshape(count, L)
+    y = y.reshape(count >> s1, 1 << s1, L)
+    tw = tables.tw_inv if inverse else tables.tw
+    for s in range(s0, s1):
+        y = _dit_stage(y, lf, tw, s, tables.n.bit_length() - 1)
+    y = y.reshape(*x.shape[:-1], L).to(torch.int32)
+    return y if out_limbs else pack_words(y)
+
+
+def _ntt_tile_cuda(x: torch.Tensor, tables: NttTables, s0: int, s1: int, diag: bool,
+                   inverse: bool, out_limbs: bool) -> torch.Tensor:
+    count = _check_tile_args(x, tables, s0, s1, diag)
+    kernels.check_cuda("ntt_tile", x, torch.int32)
+    L = tables.spec.num_limbs16
+    W = L // 2
+    if W not in (2, 4, 6, 8) or count >= (1 << 31):
+        raise ValueError(f"ntt_tile kernel: unsupported shape {tuple(x.shape)}")
+    if tables.device != x.device:
+        raise ValueError(f"ntt_tile: tables on {tables.device}, input on {x.device}")
+    out = torch.empty((*x.shape[:-1], L if out_limbs else W), dtype=torch.int32,
+                      device=x.device)
+    tw = tables.tw_inv_mont if inverse else tables.tw_mont
+    with torch.cuda.device(x.device):
+        kernels.NTT_TILE(kernels.ptr(x), kernels.ptr(out), kernels.ptr(tw),
+                         kernels.ptr(tables.fs_tw_mont) if diag else None, count,
+                         tables.n.bit_length() - 1, s0, s1, int(x.shape[-1] == L),
+                         int(out_limbs), W, kernels.ptr(tables.p_words), kernels.stream_of(x))
+    return out
+
+
+def ntt_tile_stages(x: torch.Tensor, tables: NttTables, s0: int, s1: int, *,
+                    diag: bool = False, inverse: bool = False,
+                    out_limbs: bool = False) -> torch.Tensor:
+    """KT (``csrc/ntt_tile.cu``) on a CUDA tensor, :func:`ntt_tile_stages_plain`
+    on a CPU tensor: the same function."""
+    if x.device.type == "cpu":
+        return ntt_tile_stages_plain(x, tables, s0, s1, diag, inverse, out_limbs)
+    if x.device.type != "cuda":
+        raise ValueError(f"ntt_tile: no kernel for device {x.device}")
+    return _ntt_tile_cuda(x, tables, s0, s1, diag, inverse, out_limbs)
+
+
+def ntt_stages(words: torch.Tensor, tables: NttTables, s0: int,
+               inverse: bool = False) -> torch.Tensor:
+    """Radix-2 DIT stages s0 .. log2(n)-1 over whole rows of (batch, n, W)
+    words, then the limbs (batch, n, L): on a CUDA tensor K1's own stage
+    launches and unpack (``csrc/ntt.cu`` ``lcpc_ntt_stages``, counted as K1;
+    the words are transformed in place), on a CPU tensor :func:`_ntt_core`."""
+    batch, n, W = words.shape
+    if n != tables.n or W != tables.spec.num_limbs16 // 2 or not 0 <= s0 <= n.bit_length() - 1:
+        raise ValueError(f"ntt_stages: words {tuple(words.shape)}, stages from {s0}, "
+                         f"tables of n = {tables.n}")
+    if words.device.type == "cpu":
+        tw = tables.tw_inv if inverse else tables.tw
+        x = _limbs64(words, 2 * W)
+        return _ntt_core(x, limb_field(tables.spec), tw, s0).to(torch.int32)
+    if words.device.type != "cuda":
+        raise ValueError(f"ntt_stages: no kernel for device {words.device}")
+    kernels.check_cuda("ntt_stages", words, torch.int32)
+    if W not in (2, 4, 6, 8) or batch * n >= (1 << 31):
+        raise ValueError(f"ntt_stages kernel: unsupported shape {tuple(words.shape)}")
+    out = torch.empty((batch, n, 2 * W), dtype=torch.int32, device=words.device)
+    tw = tables.tw_inv_mont if inverse else tables.tw_mont
+    with torch.cuda.device(words.device):
+        kernels.NTT_STAGES(kernels.ptr(words), kernels.ptr(out), kernels.ptr(tw), batch,
+                           n.bit_length() - 1, s0, W, kernels.ptr(tables.p_words),
+                           kernels.stream_of(words))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _mul_mod_consts(spec: FieldSpec) -> tuple[np.ndarray, np.ndarray]:
+    """Host words of p and of R^2 mod p, R = 2^(32W)."""
+    p = spec.modulus
+    W = spec.num_limbs16 // 2
+    r2 = (1 << (64 * W)) % p
+    return tuple(np.array([(v >> (32 * i)) & 0xFFFFFFFF for i in range(W)], dtype=np.uint32)
+                 for v in (p, r2))
+
+
+def _check_mul_mod_args(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> None:
+    L = spec.num_limbs16
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != L or b.shape[1] != L or b.shape[0] < 1:
+        raise ValueError(f"mul_mod: expected (N, {L}) and (b_rows >= 1, {L}), "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+
+
+def mul_mod_plain(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """Plain version of KM (any device): out[i] = a[i] * b[i mod b_rows] mod p
+    for canonical (N, L) and (b_rows, L) limbs; int32."""
+    _check_mul_mod_args(a, b, spec)
+    idx = torch.arange(a.shape[0], device=a.device) % b.shape[0]
+    return limb_field(spec).mul(a, b[idx]).to(torch.int32)
+
+
+def mul_mod(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+    """KM (``csrc/ntt_tile.cu`` ``lcpc_mul_mod``) on CUDA tensors,
+    :func:`mul_mod_plain` on CPU tensors: out[i] = a[i] * b[i mod b_rows] mod
+    p.  It serves the JAX package's ``mul_mod_pallas`` (b_rows = N) and
+    ``_scale_call`` (b the single constant n^-1)."""
+    if a.device.type == "cpu":
+        return mul_mod_plain(a, b, spec)
+    if a.device.type != "cuda":
+        raise ValueError(f"mul_mod: no kernel for device {a.device}")
+    _check_mul_mod_args(a, b, spec)
+    kernels.check_cuda("mul_mod", a, torch.int32)
+    kernels.check_cuda("mul_mod", b, torch.int32)
+    W = spec.num_limbs16 // 2
+    if W not in (2, 4, 6, 8) or a.shape[0] >= (1 << 31) or b.device != a.device:
+        raise ValueError(f"mul_mod kernel: unsupported inputs {tuple(a.shape)} on {a.device}, "
+                         f"{tuple(b.shape)} on {b.device}")
+    out = torch.empty_like(a)
+    if not a.shape[0]:
+        return out
+    p_words, r2_words = _mul_mod_consts(spec)
+    with torch.cuda.device(a.device):
+        kernels.MUL_MOD(kernels.ptr(a), kernels.ptr(b), kernels.ptr(out), a.shape[0],
+                        b.shape[0], W, kernels.ptr(p_words), kernels.ptr(r2_words),
+                        kernels.stream_of(a))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TileCall:
+    """One KT call of a route: ``call()`` runs :func:`ntt_tile_stages` on
+    these inputs, ``call.plain()`` :func:`ntt_tile_stages_plain`."""
+    x: torch.Tensor
+    tables: NttTables
+    s0: int
+    s1: int
+    diag: bool = False
+    inverse: bool = False
+    out_limbs: bool = False
+
+    def __call__(self) -> torch.Tensor:
+        return ntt_tile_stages(self.x, self.tables, self.s0, self.s1, diag=self.diag,
+                               inverse=self.inverse, out_limbs=self.out_limbs)
+
+    def plain(self) -> torch.Tensor:
+        return ntt_tile_stages_plain(self.x, self.tables, self.s0, self.s1, self.diag,
+                                     self.inverse, self.out_limbs)
+
+
+@dataclasses.dataclass(frozen=True)
+class MulModCall:
+    """One KM call of a route: ``call()`` runs :func:`mul_mod`,
+    ``call.plain()`` :func:`mul_mod_plain`."""
+    a: torch.Tensor
+    b: torch.Tensor
+    spec: FieldSpec
+
+    def __call__(self) -> torch.Tensor:
+        return mul_mod(self.a, self.b, self.spec)
+
+    def plain(self) -> torch.Tensor:
+        return mul_mod_plain(self.a, self.b, self.spec)
+
+
+def _launch(call: TileCall | MulModCall, calls: list | None) -> torch.Tensor:
+    if calls is not None:
+        calls.append(call)
+    return call()
+
+
+def _dup_rows(rev: torch.Tensor, skip: int) -> torch.Tensor:
+    """rev[j & ~(2^skip - 1)]: the bit-reversal with each run of 2^skip
+    taking its first entry (the pruned stages' duplication)."""
+    return rev[::1 << skip].repeat_interleave(1 << skip) if skip else rev
+
+
+def ntt_four_step(x: torch.Tensor, spec: FieldSpec, n_nonzero: int | None = None,
+                  tables: NttTables | None = None, *, calls: list | None = None) -> torch.Tensor:
+    """Forward NTT along axis -2 by the four-step split (the JAX package's
+    ``ntt_four_step``, ``xpose`` mode), bit-equal to :func:`ntt`.
+
+    Positions at or past n_nonzero must be zero (the Ligero encode's padding):
+    as in the reference, the first pass skips the stages that would only
+    duplicate them.  With j = j1 + n1 j2 and k = k2 + n2 k1:
+
+    1. P0: rows j2 taken in bit-reversed order (a run of 2^skip rows per
+       entry), then the (n2, n1) transpose: one torch gather of the limbs;
+    2. KT pass A: the n2-point sub-NTTs, stages skip .. log2(n2)-1, limbs
+       in, words out (no launch when every stage is skipped);
+    3. P1: rows j1 in bit-reversed order, then the transpose (a gather);
+    4. KT pass B: each value times w_n^(j1 k2), then the n1-point
+       sub-NTTs, limbs out;
+    5. P2: the transpose to natural order.
+
+    Outside 1024 < n <= 2^20 this is :func:`ntt` (K1), as in the reference.
+    KT's calls are appended to ``calls`` when it is given."""
+    batch, n, L = x.shape
+    n_nonzero = _check_args(x, spec, n_nonzero)
+    split = _fs_split(n)
+    if split is None:
+        return ntt(x, spec, n_nonzero, tables)
+    tables = _tables_for(spec, n, x, tables, "four_step")
+    n1, n2 = split
+    skip = _skip_for(n2, -(-n_nonzero // n1) if 0 < n_nonzero < n else None)
+    log_n2 = n2.bit_length() - 1
+    a = x.reshape(batch, n2, n1, L).transpose(1, 2).index_select(2, _dup_rows(tables.rev2, skip))
+    if skip < log_n2:
+        a = _launch(TileCall(a, tables, skip, log_n2), calls)
+    b = a.transpose(1, 2).index_select(2, tables.rev1)
+    c = _launch(TileCall(b, tables, 0, n1.bit_length() - 1, diag=True, out_limbs=True), calls)
+    return c.transpose(1, 2).reshape(batch, n, L)
+
+
+def ntt_fused_small(x: torch.Tensor, spec: FieldSpec, n_nonzero: int | None = None,
+                    tables: NttTables | None = None, inverse: bool = False,
+                    tile: int = FUSED_TILE, *, calls: list | None = None) -> torch.Tensor:
+    """Forward (or, with ``inverse``, inverse) NTT along axis -2 the way the
+    JAX package's ``ntt_pallas`` runs it, bit-equal to :func:`ntt` /
+    :func:`intt`:
+
+    1. the bit-reversal gather, each run of 2^skip rows taking its first
+       (the forward transform's pruned stages; positions at or past
+       n_nonzero must be zero);
+    2. KT: every stage with half below the tile T = min(tile, n), limbs in;
+    3. K1's stage launches for the stages with half >= T, and its unpack;
+    4. the inverse's n^-1 product, KM with one broadcast row.
+
+    ``tile`` is a power of two up to :data:`TILE_MAX`.  KT's and KM's calls
+    are appended to ``calls`` when it is given."""
+    batch, n, L = x.shape
+    n_nonzero = _check_args(x, spec, None if inverse else n_nonzero)
+    if tile < 2 or tile & (tile - 1) or tile > TILE_MAX:
+        raise ValueError(f"ntt_fused_small: tile must be a power of two in [2, {TILE_MAX}]")
+    tables = _tables_for(spec, n, x, tables, "fused_small")
+    log_n = n.bit_length() - 1
+    log_t = min(tile, n).bit_length() - 1
+    skip = 0 if inverse else _skip_for(n, n_nonzero)
+    g = x.index_select(1, _dup_rows(tables.rev, skip))
+    if log_t == log_n:
+        y = _launch(TileCall(g, tables, min(skip, log_n), log_n, inverse=inverse,
+                             out_limbs=True), calls)
+    else:
+        words = _launch(TileCall(g, tables, min(skip, log_t), log_t, inverse=inverse), calls)
+        y = ntt_stages(words, tables, max(skip, log_t), inverse)
+    if inverse:
+        y = _launch(MulModCall(y.reshape(batch * n, L), tables.n_inv.reshape(1, L), spec),
+                    calls)
+    return y.reshape(batch, n, L)

@@ -172,7 +172,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "stored host record, else 127.0.0.1:8080)")
     p.add_argument("--device", default=None,
                    help="torch device of the server's or client's device work "
-                        "(default: the current CUDA card where there is one, else cpu)")
+                        "(default: the current CUDA card; raises without one, pass "
+                        "--device cpu for the host)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sp = sub.add_parser("upload", aliases=["up"], help="upload + verify a file")

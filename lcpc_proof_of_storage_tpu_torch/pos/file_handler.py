@@ -6,7 +6,8 @@ quadruple (.porraw/.porenc/.portree/.meta) and the in-memory Merkle tree;
 supports create/attach, edit/append/reshape, row/column access and the
 full-consistency self-check.  Its device work (row encodes, the chunk-CV
 cache, the left-multiply of a polynomial evaluation) runs on `device`
-(default: the card where there is one).
+(default: the current CUDA card; without one it raises unless given
+``device="cpu"``).
 """
 
 from __future__ import annotations

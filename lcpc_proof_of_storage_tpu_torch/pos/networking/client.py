@@ -3,8 +3,8 @@
 Counterpart of ``lcpc_proof_of_storage_tpu/pos/networking/client.py`` (a
 re-creation of proof-of-storage/src/networking/client.rs); its device work
 (the leaves precompute, the decode of every evaluation check) runs on the
-session's device, the card where there is one unless ``connect`` is given
-``device="cpu"``.  Every flow
+session's device: the current CUDA card unless ``connect`` is given
+``device="cpu"`` (without a card and without it, it raises).  Every flow
 pre-computes its local expectations (column leaves, expected evaluation
 differences) before trusting anything the server sends, exactly mirroring
 the reference's verification math:

@@ -4,7 +4,8 @@ Counterpart of ``lcpc_proof_of_storage_tpu/pos/networking/server.py`` (a
 re-creation of proof-of-storage/src/networking/server.rs), serving the same
 wire messages and the same on-disk quadruples; its device work (encodes,
 digests, the left-multiply of an evaluation) runs on the server's device,
-the card where there is one unless ``serve`` is given ``device="cpu"``.
+the current CUDA card unless ``serve`` is given ``device="cpu"`` (without
+a card and without it, it raises).
 Request/response
 in lockstep over a length-delimited JSON stream; every handler error turns
 into an ErrorResponse instead of dropping the connection (server.rs:267-277).

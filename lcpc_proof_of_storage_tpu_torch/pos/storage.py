@@ -619,7 +619,7 @@ class EncodedFileWriter:
     """Streaming commit: bytes in -> batched device encode -> incremental
     column digests -> column-major writes.  Layout: element (row, col) at
     byte offset col*row_capacity*W + row*W.  Runs on `device` (default: the
-    card where there is one)."""
+    current CUDA card; without one it raises unless given ``device="cpu"``)."""
 
     def __init__(self, n_per_row: int, n_cols: int, original_file_size: int,
                  target_path: Path, spec: FieldSpec, device=None):
@@ -768,7 +768,8 @@ def _move_columns(f, n_cols: int, old_cap: int, new_cap: int, W: int) -> None:
 
 class EncodedFileReader:
     """Row and column access to an encoded file; decodes and re-encodes on
-    `device` (default: the card where there is one)."""
+    `device` (default: the current CUDA card; without one it raises unless
+    given ``device="cpu"``)."""
 
     def __init__(self, path: Path, spec: FieldSpec, n_per_row: int,
                  n_cols: int, rows_written: int, row_capacity: int, device=None):

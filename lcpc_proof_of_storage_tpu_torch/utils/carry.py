@@ -55,8 +55,8 @@ def _limbs(arr) -> torch.Tensor:
 
 
 def commit_from_reference(comm, device=None) -> LcCommit:
-    """Port commitment on `device` (default: the card where there is one)
-    from a reference LcCommit."""
+    """Port commitment on `device` (default: the current CUDA card; without
+    one it raises unless given ``device="cpu"``) from a reference LcCommit."""
     device = default_device(device)
     hashes = np.array(comm.hashes, dtype=np.uint32).view(np.int32)
     return LcCommit(coeffs=_limbs(comm.coeffs).to(device), comm=_limbs(comm.comm).to(device),

@@ -59,7 +59,7 @@ def _tensors(spec, n_rows, n_per_row, x=X):
 def test_golden_brakedown_pins():
     bde = BrakedownEncoding.new(512, seed=7, field=FT63)
     coeffs = [(i * 97 + 5) % FT63.modulus for i in range(512)]
-    comm = port.commit(coeffs, bde)
+    comm = port.commit(coeffs, bde, device="cpu")
     root = comm.get_root().root
     outer, _ = _tensors(FT63, comm.n_rows, comm.n_per_row)
     blob = serde.serialize_proof(port.prove(comm, outer, bde, _tr(root)), FT63)
@@ -85,12 +85,12 @@ def case():
     value = sum(c * pow(X, i, spec.modulus) for i, c in enumerate(coeffs)) % spec.modulus
     return dict(spec=spec, jspec=jspec, coeffs=coeffs, jenc=jenc, root=root, outer=outer,
                 inner=inner, jblob=jblob, jstate=jtr.state_bytes(), enc=enc,
-                comm=port.commit(coeffs, enc), value=value)
+                comm=port.commit(coeffs, enc, device="cpu"), value=value)
 
 
 def _port_verify(case, proof, enc=None):
     return port.verify(case["root"], case["outer"], case["inner"], proof,
-                       enc or case["enc"], _tr(case["root"]))
+                       enc or case["enc"], _tr(case["root"]), device="cpu")
 
 
 def _jax_verify(case, proof):
@@ -111,7 +111,7 @@ def test_root_proof_and_transcript_match_reference(case):
 def test_carried_tables_commit_and_prove_alike(case):
     """The reference's own tables (no port matgen) give the same bytes."""
     enc = brakedown_encoding_from_reference(case["jenc"])
-    comm = port.commit(case["coeffs"], enc)
+    comm = port.commit(case["coeffs"], enc, device="cpu")
     assert comm.get_root().root == case["root"]
     proof = port.prove(comm, case["outer"], enc, _tr(case["root"]))
     assert serde.serialize_proof(proof, case["spec"]) == case["jblob"]

@@ -109,7 +109,7 @@ def proofs():
     spec = field.FT63
     coeffs = [int(v) % spec.modulus for v in rng.integers(0, 1 << 63, size=300)]
     enc = LigeroEncoding.new_from_dims(16, 64, spec)
-    comm = port.commit(coeffs, enc)
+    comm = port.commit(coeffs, enc, device="cpu")
     tr = Transcript(b"serde")
     tr.append_message(b"polycommit", comm.get_root().root)
     proof = port.prove(comm, [int(v) for v in rng.integers(1, 1 << 60, size=comm.n_rows)],

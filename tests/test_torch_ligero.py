@@ -65,7 +65,7 @@ def _sha(blob: bytes) -> str:
 def test_golden_ft63_pins():
     coeffs = [(i * 2654435761 + 12345) % FT63.modulus for i in range(512)]
     enc = LigeroEncoding.new_from_dims(16, 64, FT63)
-    comm = port.commit(coeffs, enc)
+    comm = port.commit(coeffs, enc, device="cpu")
     root = comm.get_root().root
     outer, _ = _tensors(FT63, comm.n_rows, comm.n_per_row)
     tr = _tr(root)
@@ -85,7 +85,7 @@ def test_golden_ft63_pins():
 def test_golden_wide_field_pins(name, spec):
     coeffs = [(i * 0x9E3779B97F4A7C15 + 7) % spec.modulus for i in range(512)]
     enc = LigeroEncoding.new_from_dims(16, 64, spec)
-    comm = port.commit(coeffs, enc)
+    comm = port.commit(coeffs, enc, device="cpu")
     root = comm.get_root().root
     outer, _ = _tensors(spec, comm.n_rows, comm.n_per_row)
     blob = serde.serialize_proof(port.prove(comm, outer, enc, _tr(root)), spec)
@@ -109,7 +109,7 @@ def case():
     jtr = _jtr(root)
     jblob = jax_serde.serialize_proof(jax_core.prove(jcomm, outer, jenc, jtr), jspec)
     enc = encoding_from_reference(jenc)
-    comm = port.commit(coeffs, enc)
+    comm = port.commit(coeffs, enc, device="cpu")
     value = sum(c * pow(X, i, spec.modulus) for i, c in enumerate(coeffs)) % spec.modulus
     return dict(spec=spec, jspec=jspec, coeffs=coeffs, jenc=jenc, jcomm=jcomm, root=root,
                 outer=outer, inner=inner, jblob=jblob, jstate=jtr.state_bytes(), enc=enc,
@@ -127,7 +127,7 @@ def _jax_verify(case, proof):
 
 def _port_verify(case, proof):
     return port.verify(case["root"], case["outer"], case["inner"], proof, case["enc"],
-                       _tr(case["root"]))
+                       _tr(case["root"]), device="cpu")
 
 
 def test_root_and_proof_bytes_match_reference(case):
@@ -150,7 +150,7 @@ def test_port_proof_verifies_under_reference(case):
 
 
 def test_carried_commitment_proves_to_same_bytes(case):
-    comm = commit_from_reference(case["jcomm"])
+    comm = commit_from_reference(case["jcomm"], device="cpu")
     assert comm.coeffs.dtype == torch.int32 and comm.hashes.dtype == torch.int32
     proof = port.prove(comm, case["outer"], case["enc"], _tr(case["root"]))
     assert serde.serialize_proof(proof, case["spec"]) == case["jblob"]
@@ -298,11 +298,27 @@ def test_verify_runs_on_the_device_it_is_given(case, monkeypatch):
 
 def test_entry_points_default_to_the_card(monkeypatch):
     """commit and verify run on the card where there is one, unless given
-    the CPU."""
+    the CPU; with no card and no device they raise instead of falling back."""
     from lcpc_proof_of_storage_tpu_torch.core.commit import default_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     assert default_device() == torch.device("cuda", 0)
     assert default_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert default_device() == torch.device("cpu")
+    assert default_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        default_device()
+
+
+def test_commit_without_a_card_or_device_raises(monkeypatch, case):
+    """No card and no device: commit and verify raise; device="cpu" is the
+    one way to run on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.commit(case["coeffs"], case["enc"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.commit(torch.zeros((4, FT63.num_limbs16), dtype=torch.int32), case["enc"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.verify(case["root"], case["outer"], case["inner"], _port_proof(case), case["enc"],
+                    _tr(case["root"]))
+    assert port.commit(case["coeffs"], case["enc"], device="cpu").get_root().root == case["root"]

@@ -20,7 +20,7 @@ from lcpc_proof_of_storage_tpu_torch.fields import FT63
 
 def run(enc, n, commit=p.commit):
     coeffs = [(i * 2654435761 + 12345) % FT63.modulus for i in range(n)]
-    comm = commit(coeffs, enc)
+    comm = commit(coeffs, enc, device="cpu")
     root = comm.get_root().root
     x = 987654321
     xr = pow(x, comm.n_per_row, FT63.modulus)
@@ -34,13 +34,14 @@ def run(enc, n, commit=p.commit):
     want = 0
     for c in reversed(coeffs):
         want = (want * x + c) % FT63.modulus
-    assert p.verify(root, outer, inner, proof, enc, tr()) == want
+    assert p.verify(root, outer, inner, proof, enc, tr(), device="cpu") == want
 
 run(p.LigeroEncoding.new_from_dims(16, 64, FT63), 300)
+run(p.LigeroEncoding.new_from_dims(256, 2048, FT63, ntt="four_step"), 600)
 run(p.BrakedownEncoding.new(400, seed=3, field=FT63), 400)
 run(p.LigeroEncoding.new_from_dims(4, 16, FT63), 1100,
-    lambda c, e: p.commit_streamed(c, e, target_batch_rows=100, keep_comm=False,
-                                   device_coeffs=False))
+    lambda c, e, device: p.commit_streamed(c, e, target_batch_rows=100, keep_comm=False,
+                                           device_coeffs=False, device=device))
 
 import asyncio, pathlib, tempfile
 from lcpc_proof_of_storage_tpu_torch.pos.database import MetadataStore
@@ -74,12 +75,12 @@ assert "torch" in sys.modules
 
 
 def test_importing_the_port_loads_no_jax():
-    """Every port module imports, and a tiny Ligero, a tiny Brakedown and a
-    tiny streamed Ligero (three row batches, host coefficients, no encoded
-    matrix kept) commit -> prove -> serde -> verify run on the CPU, then a
-    tiny PoS round trip (an in-process server and client: upload, proof,
-    polynomial evaluation, download), with no jax* and no
-    lcpc_proof_of_storage_tpu module loaded."""
+    """Every port module imports, and a tiny Ligero (on the stages and the
+    four_step routes), a tiny Brakedown and a tiny streamed Ligero (three
+    row batches, host coefficients, no encoded matrix kept) commit -> prove
+    -> serde -> verify run on the CPU, then a tiny PoS round trip (an
+    in-process server and client: upload, proof, polynomial evaluation,
+    download), with no jax* and no lcpc_proof_of_storage_tpu module loaded."""
     modules = sorted(
         ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
