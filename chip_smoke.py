@@ -6,8 +6,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases, one or more lines each: environment; kernel build from csrc/ (one
-nvcc per source, in parallel); each hand-written kernel against its plain
-PyTorch version on the card (bit-exact), K5 on every field, on a level of
+nvcc per source, in parallel; ptxas's registers and spills of K1's pass
+kernel); each hand-written kernel against its plain
+PyTorch version on the card (bit-exact), K1 and K4's inverse at the edges
+of their pass plan (n = 2^10, 2^11, 2^20, 2^21; one, two, two and three
+passes) on five fields, K5 on every field, on a level of
 3000 slots, on a ragged row count and on all 12 levels of a 2^21 encode;
 KT (ntt_tile) and KM (mul_mod) on five fields, the four_step and
 fused_small NTT routes against K1 up to n = 2^20 and the fused_small
@@ -165,6 +168,14 @@ def ntt_bound(batch: int, n: int, L: int, stages: int, scale: bool = False):
     return bound(2 * batch * n * L * 4, ops)
 
 
+def plan_text(n: int) -> str:
+    """K1's and K4's pass plan at n, as ops/ntt.py ntt_pass_plan gives it."""
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    plan = ntt.ntt_pass_plan(n)
+    return (f"{len(plan)} pass{'es' if len(plan) > 1 else ''}, stages "
+            + " ".join(f"{lo}..{hi - 1}" for lo, hi in plan))
+
+
 def cuda_ms(fn, runs: int = N_TIMED) -> float:
     """Median wall milliseconds of fn() over `runs` synchronised runs after
     one warm-up (for host-and-device steps)."""
@@ -276,6 +287,36 @@ def check_kernels(res: Results, dev) -> None:
         t = torch.from_numpy(random_limbs(rng, (T, rows), spec)).to(dev)
         res.compare("collapse", f"{spec.name} rows={rows} npr={npr} T={T}",
                     collapse.collapse(c, t, spec), collapse.collapse_plain(c, t, spec))
+    check_ntt_passes(res, dev)
+
+
+def check_ntt_passes(res: Results, dev) -> None:
+    """K1 against ntt_plain and K4's inverse against intt_plain at the edges
+    of their pass plan, bit-exact, on five fields: n = 2^10 (one pass, several
+    rows a block), 2^11 (two), 2^20 (two of ten stages) and 2^21 (three), with
+    a ragged n_nonzero for K1."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch.fields import FT63, FT127, FT191, FT253_192, FT255
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    for log_n in (ntt.K_MAX, ntt.K_MAX + 1, 20, 21):
+        n = 1 << log_n
+        batch = 3 if log_n < 20 else 1
+        nnz = n * 3 // 8 + 5
+        for spec in (FT63, FT127, FT191, FT255, FT253_192):
+            tables = ntt.NttTables(spec, n).to(dev)
+            x = random_limbs_device(gen, (batch, n), spec, dev)
+            res.compare("ntt", f"{spec.name} batch={batch} n=2^{log_n} n_nonzero={nnz}",
+                        ntt.ntt(x, spec, nnz, tables), ntt.ntt_plain(x, spec, nnz, tables),
+                        quiet=True)
+            res.compare("ntt_inverse", f"{spec.name} batch={batch} n=2^{log_n}",
+                        ntt.intt(x, spec, tables), ntt.intt_plain(x, spec, tables), quiet=True)
+            del x, tables
+            free_device(dev)
+        say(f"kernel ntt and ntt_inverse at n=2^{log_n} ({plan_text(n)}), batch {batch}, "
+            f"n_nonzero {nnz} for the forward, five fields: bit-exact against plain")
 
 
 def check_expander(res: Results, dev) -> None:
@@ -394,8 +435,19 @@ def check_ntt_route_kernels(res: Results, dev) -> None:
             b = torch.from_numpy(random_limbs(rng, (b_rows,), spec)).to(dev)
             res.compare("mul_mod", f"{spec.name} N={n} b_rows={b_rows}", ntt.mul_mod(a, b, spec),
                         ntt.mul_mod_plain(a, b, spec), quiet=True)
+            if b_rows == n:
+                square = a, b
         say(f"kernel mul_mod {spec.name}: N = 100003 (b_rows N and 7) and 4099 (one broadcast "
             f"row): bit-exact against plain")
+        if spec is FT255:   # mul_mod_pallas's own call: a (N, L) x (N, L) product
+            a, b = square
+            n = b_rows = a.shape[0]
+            k = min(event_ms(lambda: ntt.mul_mod(a, b, spec)) for _ in range(2))
+            p_ms = event_ms(lambda: ntt.mul_mod_plain(a, b, spec), 2)
+            bd, by = mul_mod_bound(n, b_rows, L)
+            say(f"time [{card_line()}]: mul_mod ({n}, {L}) x ({b_rows}, {L}) {spec.name} "
+                f"(mul_mod_pallas): kernel {k:.4f} ms, plain {p_ms:.3f} ms, bound {bd:.4f} ms "
+                f"({by})")
         free_device(dev)
 
     for spec in (FT63, FT255):
@@ -452,6 +504,32 @@ def route_call_bound(call, L: int) -> tuple[float, str]:
                       call.x.shape[-1] == L, call.out_limbs, call.tables.n if call.diag else 0)
 
 
+def time_k1_passes(card: str, spec, x, nnz: int, what: str, tables) -> None:
+    """K1's passes apart, CUDA-event means on words of x: the last pass alone
+    (lcpc_ntt_stages from its first stage), the rest of K1 by difference; and
+    K1's stages from the fused_small tile on (the route's _stage_call), beside
+    ntt_bound of those stages."""
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    batch, n, L = x.shape
+    plan = ntt.ntt_pass_plan(n)
+    words = ntt.pack_words(x)
+    whole = min(event_ms(lambda: ntt.ntt(x, spec, nnz, tables)) for _ in range(2))
+    parts = [f"K1 {whole:.4f} ms"]
+    if len(plan) > 1:
+        s_last = plan[-1][0]
+        last = min(event_ms(lambda: ntt.ntt_stages(words, tables, s_last)) for _ in range(2))
+        b, by = ntt_bound(batch, n, L, n.bit_length() - 1 - s_last)
+        parts.append(f"last pass (stages {s_last}..{n.bit_length() - 2}) alone {last:.4f} ms "
+                     f"(bound {b:.4f}, {by}), the rest {whole - last:.4f} ms")
+    log_t = min(ntt.FUSED_TILE, n).bit_length() - 1
+    if log_t < n.bit_length() - 1:
+        st = min(event_ms(lambda: ntt.ntt_stages(words, tables, log_t)) for _ in range(2))
+        b, by = ntt_bound(batch, n, L, n.bit_length() - 1 - log_t)
+        parts.append(f"stages {log_t}.. (fused_small's _stage_call) {st:.4f} ms, bound "
+                     f"{b:.4f} ms ({by})")
+    say(f"time [{card}]: K1 passes {what} ({batch}, {n}, {L}) {spec.name}: " + "; ".join(parts))
+
+
 def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
                     record: bool = False, check_rows: int | None = None) -> None:
     """At one path's (batch, n, L) input x (zero past nnz): every KT and KM
@@ -500,7 +578,8 @@ def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
         times[name].append(event_ms(fn))
     say(f"time [{card}]: NTT {what} ({batch}, {n}, {L}) {spec.name} n_nonzero={nnz}: "
         + ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
-        + f" (in turns); bound {b:.4f} ms ({by})")
+        + f" (in turns); bound {b:.4f} ms ({by}); K1 {plan_text(n)}")
+    time_k1_passes(card, spec, x, nnz, what, fs)
     if record:
         pass_b = next(c for c in calls["four_step"] if c.diag)
         km = next(c for c in calls["fused_small inverse"] if isinstance(c, ntt.MulModCall))
@@ -508,6 +587,12 @@ def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
             res.bound[name] = route_call_bound(call, L)
             timed_pair(res, name, call, call.plain,
                        f"{what} {route_call_label(call, L)}", card, plain_runs=1)
+        W = L // 2
+        count, s = km.a.shape[0], res.ms["mul_mod"] / 1e3
+        say(f"arithmetic probe [{card}]: KM's {count} values x 2 Montgomery products of "
+            f"W={W} words in {res.ms['mul_mod']:.4f} ms: {2 * count / s / 1e9:.2f} G "
+            f"products/s, {2 * count * 4 * W * W / s / 1e12:.2f} T 32-bit multiply-add "
+            f"halves/s (4 W^2 a product)")
     inv = {"K4 inverse": lambda: ntt.intt(y, spec, fu),
            "fused_small inverse": lambda: ntt.ntt_fused_small(y, spec, None, fu, inverse=True)}
     t_inv = {name: [event_ms(fn, 5)] for name, fn in inv.items()}
@@ -785,7 +870,8 @@ def ligero_path(res: Results, dev, card: str) -> None:
                                   2 * n_rows * n_per_row * W * W * 2)
     timed_pair(res, "ntt", lambda: ntt.ntt(padded, spec, n_per_row, enc.tables(dev)),
                lambda: ntt.ntt_plain(padded, spec, n_per_row, enc.tables(dev)),
-               f"({n_rows}, {n_cols}, 16) n_nonzero={n_per_row}", card, plain_runs=1)
+               f"({n_rows}, {n_cols}, 16) n_nonzero={n_per_row}, {plan_text(n_cols)}", card,
+               plain_runs=1)
     timed_pair(res, "blake3_leaves", lambda: blake3.hash_columns(comm.comm, spec),
                lambda: blake3.hash_columns_plain(comm.comm, spec),
                f"({n_rows}, {n_cols}, 16) -> ({n_cols}, 8)", card, plain_runs=1)
@@ -1610,7 +1696,7 @@ def check_pos_kernels(res: Results, dev, card: str) -> None:
         k = min(event_ms(lambda: ntt.intt(x, spec, tables)) for _ in range(2))
         p = event_ms(lambda: ntt.intt_plain(x, spec, tables), 2)
         say(f"time [{card}]: ntt_inverse ({batch}, {n}, {L}) {spec.name} ({what}): kernel "
-            f"{k:.4f} ms, plain {p:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
+            f"{k:.4f} ms, plain {p:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); {plan_text(n)}")
         if batch == 1:   # the PoS path's shape is the kernel line's
             res.ms["ntt_inverse"], res.plain_ms["ntt_inverse"] = k, p
             res.bound["ntt_inverse"] = b
@@ -1633,7 +1719,7 @@ def check_pos_kernels(res: Results, dev, card: str) -> None:
     p = event_ms(lambda: ntt.ntt_plain(x, spec, n // 2, tables), 2)
     say(f"time [{card}]: ntt ({batch}, {n}, 4) {spec.name} n_nonzero={n // 2} (K4's forward "
         f"half, one PoS writer batch): kernel {k:.4f} ms, plain {p:.3f} ms, bound {b[0]:.4f} ms "
-        f"({b[1]})")
+        f"({b[1]}); {plan_text(n)}")
     del x, tables
     free_device(dev)
     check_pos_path_kernels(res, dev, card, gen)
@@ -2094,7 +2180,7 @@ def main() -> int:
     kernels.library()
     say(f"build: csrc/*.cu -> {so} in {time.perf_counter() - t0:.1f} s")
     for line in (so.parent / "nvcc.log").read_text().splitlines():
-        if ("expander_matvec" in line or "Used" in line
+        if ("expander_matvec" in line or "ntt_pass" in line or "Used" in line
                 or ("spill" in line and "0 bytes spill stores" not in line)):
             say(f"build: {line.strip()}")
     t0 = time.perf_counter()

@@ -38,8 +38,11 @@
 // out), 0.240 ms at 3.35 TB/s, and their 13 stages (after 2 pruned) are
 // 2^21 butterflies each of about 4 W^2 + 8 W 32-bit operations, 8.7 G in
 // all, 0.26 ms at 33.5 T integer operations/s.  KM is bound by its bytes.
-// Both use K1's 64-bit carry chains (montgomery.cuh); chip_smoke.py
-// measures them beside K1.
+// Both take the carry-chain arithmetic of montgomery.cuh, as K1 does; their
+// time is in their value-at-a-time loads and stores (load_value /
+// store_value: 4-byte accesses at a value's stride) more than in the
+// arithmetic, which the switch from 64-bit sums to 32-bit carry chains
+// moved little (PERF.md).  chip_smoke.py measures them beside K1.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -134,8 +134,8 @@ class Kernel:
 NTT_FORWARD = Kernel("lcpc_ntt_forward", [P, P, P, P, I, I, I, I, P, P])
 # csrc/ntt.cu: in, out, work, tw_inv, batch, log_n, W, p_host, n_inv_mont, stream
 NTT_INVERSE = Kernel("lcpc_ntt_inverse", [P, P, P, P, I, I, I, P, P, P])
-# csrc/ntt.cu: work, out, tw, batch, log_n, s0, W, p_host, stream.  K1's own stage
-# launches from s0 on and its unpack, for the fused_small route: counted as K1.
+# csrc/ntt.cu: work, out, tw, batch, log_n, s0, W, p_host, stream.  K1's own passes
+# from stage s0 on, unpacking in the last, for the fused_small route: counted as K1.
 NTT_STAGES = Kernel("lcpc_ntt_stages", [P, P, P, I, I, I, I, P, P], counts_as=NTT_FORWARD)
 # csrc/ntt_tile.cu: in, out, tw, diag, count, log_n, s0, s1, in_limbs, out_limbs, W, p_host,
 # stream

@@ -10,7 +10,10 @@ positions (positions at or past ``n_nonzero`` are read as zero); the
 inverse gives the coefficients back from the evaluations.
 
 :func:`ntt` and :func:`intt` are the entry points: a CPU tensor goes to
-:func:`ntt_plain` / :func:`intt_plain`, a CUDA tensor to the kernel.
+:func:`ntt_plain` / :func:`intt_plain`, a CUDA tensor to the kernel, which
+runs the radix-2 DIT stages in two passes over device memory for n up to
+2^20 (:func:`ntt_pass_plan`; :func:`ntt_passes_plain` runs the same passes
+tile by tile in plain PyTorch).
 :func:`encode_rows` and :func:`decode_rows` are the Ligero row encode and
 its inverse built on them.
 
@@ -26,17 +29,16 @@ encoding's ``ntt=`` choice (``codes/ligero.py``):
   <= 2^20 (``_fs_split``) it is :func:`ntt`, as the reference's dispatch.
 * :func:`ntt_fused_small` (forward and inverse) follows ``ops/ntt_pallas.py
   ntt_pallas`` (K6): every stage with half below the tile in one pass
-  (``_fused_small_call``), then one launch a stage above it
-  (``_stage_call``), then the n^-1 product for the inverse
-  (``_scale_call``).
+  (``_fused_small_call``), then the stages above it (``_stage_call``) by
+  K1's passes, then the n^-1 product for the inverse (``_scale_call``).
 
 Both take n_nonzero as the reference's routes do, as a promise that the
 positions at or past it are zero (the Ligero encode's padding), and skip
 the stages that would only duplicate values.  Both run on packed 32-bit
 words (W = L/2 a value) between their steps and
 share one orchestration between the devices: only the calls to the tile
-kernel KT (:func:`ntt_tile_stages`, ``csrc/ntt_tile.cu``), to K1's stage
-launches (:func:`ntt_stages`) and to the modular product KM
+kernel KT (:func:`ntt_tile_stages`, ``csrc/ntt_tile.cu``), to K1's passes
+(:func:`ntt_stages`) and to the modular product KM
 (:func:`mul_mod`) dispatch, to the kernel for a CUDA tensor and to the plain
 version for a CPU tensor.  Given a ``calls`` list, a route appends each KT
 and KM call it makes (:class:`TileCall`, :class:`MulModCall`: the inputs and
@@ -202,16 +204,23 @@ class NttTables(torch.nn.Module):
         return self.tw.device
 
 
-def _dit_stage(x: torch.Tensor, lf: LimbField, tw: torch.Tensor, s: int,
-               log_n: int) -> torch.Tensor:
-    """One radix-2 DIT stage (half = 2^s) over aligned runs of (batch, m, L)
-    int64 values, m a multiple of 2^(s+1); tw holds the w^j (or w^-j) of a
-    2^log_n transform, so the stage's twiddle k is entry k << (log_n-1-s)."""
+def _dit_stage(x: torch.Tensor, lf: LimbField, tw: torch.Tensor, s: int, log_n: int,
+               s_lo: int = 0, lo: torch.Tensor | None = None) -> torch.Tensor:
+    """One radix-2 DIT stage over aligned runs of (batch, m, L) int64 values:
+    stage s of a 2^log_n transform whose runs start at stage s_lo, so the
+    pairs are i and i + half, half = 2^(s - s_lo), m a multiple of 2 half.
+    tw holds the transform's w^j (or w^-j); pair i takes entry
+    ((i mod half) << s_lo | lo) << (log_n-1-s), lo each row's low position
+    bits (K1's strided tiles, ``lo`` of shape (batch,)) or 0."""
     batch, m, L = x.shape
-    half = 1 << s
+    half = 1 << (s - s_lo)
     xv = x.reshape(batch, m // (2 * half), 2, half, L)
     a, b = xv[:, :, 0], xv[:, :, 1]
-    w = tw[torch.arange(half, device=x.device) << (log_n - 1 - s)]
+    k = torch.arange(half, device=x.device) << s_lo
+    if lo is None:
+        w = tw[k << (log_n - 1 - s)]
+    else:
+        w = tw[(k[None, :] | lo[:, None]) << (log_n - 1 - s)][:, None]
     y = lf.mul(b, w)
     return torch.stack([lf.add(a, y), lf.sub(a, y)], dim=2).reshape(batch, m, L)
 
@@ -249,6 +258,82 @@ def intt_plain(x: torch.Tensor, spec: FieldSpec, tables: NttTables | None = None
     lf = limb_field(spec)
     x = x.to(torch.int64)[:, torch.from_numpy(_bit_reverse_perm(n)).to(x.device)]
     return lf.mul(_ntt_core(x, lf, tables.tw_inv), tables.n_inv).to(torch.int32)
+
+
+K_MAX = 10   # the most stages one pass of K1 / K4 runs: tiles of up to 2^10 values
+
+
+def ntt_pass_plan(n: int, k_max: int = K_MAX) -> list[tuple[int, int]]:
+    """The stage groups [s_lo, s_hi) of K1's and K4's passes (``csrc/ntt.cu``
+    ``pass_group``): the stages 0 .. log2(n)-1 in P = ceil(log2(n) / k_max)
+    consecutive groups, the first log2(n) mod P of them one stage longer."""
+    log_n = n.bit_length() - 1
+    if n < 2 or n & (n - 1) or k_max < 1:
+        raise ValueError(f"ntt_pass_plan: n = {n}, k_max = {k_max}")
+    P = -(-log_n // k_max)
+    q, r = divmod(log_n, P)
+    groups, lo = [], 0
+    for g in range(P):
+        hi = lo + q + (g < r)
+        groups.append((lo, hi))
+        lo = hi
+    return groups
+
+
+def ntt_pass_tiles(n: int, s_lo: int, s_hi: int, first: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tiles of one pass over a row of n, as ``csrc/ntt.cu ntt_pass`` maps
+    them: (n / 2^k, 2^k) positions j in transform order (tile, slot), k =
+    s_hi - s_lo, and each tile's lo (j mod 2^s_lo).  A tile is the elements
+    j = hi * 2^s_hi + i * 2^s_lo + lo; tile id r is lo fastest, except in the
+    first pass of a transform, where tile r reads natural column r, so its hi
+    is the bit-reversal of r.  The kernel's block takes T consecutive ids."""
+    k = s_hi - s_lo
+    r = torch.arange(n >> k, dtype=torch.int64)
+    if first:
+        hi, lo = torch.from_numpy(_bit_reverse_perm(n >> k)), torch.zeros_like(r)
+    else:
+        hi, lo = r >> s_lo, r & ((1 << s_lo) - 1)
+    i = torch.arange(1 << k, dtype=torch.int64)
+    return (hi << s_hi | lo)[:, None] + (i << s_lo)[None, :], lo
+
+
+def ntt_passes_plain(x: torch.Tensor, tables: NttTables, n_nonzero: int | None = None,
+                     inverse: bool = False, k_max: int = K_MAX) -> torch.Tensor:
+    """K1 (or, with ``inverse``, K4's inverse) the way ``csrc/ntt.cu`` runs it,
+    in plain PyTorch: the passes of :func:`ntt_pass_plan`, each gathering its
+    tiles by :func:`ntt_pass_tiles`, running its stages on them with
+    :func:`_dit_stage` and scattering them back.  The first pass's gather is
+    the prologue: slot j of a row holds x[rev(j & ~(2^skip - 1))], zero at
+    or past n_nonzero (the pruned stages, :func:`_skip_for`);
+    the inverse scales by n^-1 at the end.  Equal to :func:`ntt_plain` /
+    :func:`intt_plain`; it exists to check the plan and the index map on a
+    CPU, and no path calls it.  (batch, n, L) limbs -> int32 limbs."""
+    batch, n, L = x.shape
+    spec = tables.spec
+    n_nonzero = _check_args(x, spec, None if inverse else n_nonzero)
+    tables = _tables_for(spec, n, x, tables)
+    log_n = n.bit_length() - 1
+    skip = 0 if inverse else _skip_for(n, n_nonzero)
+    lf = limb_field(spec)
+    tw = tables.tw_inv if inverse else tables.tw
+    x = x.to(torch.int64)
+    work = torch.empty((batch, n, L), dtype=torch.int64, device=x.device)
+    for g, (s_lo, s_hi) in enumerate(ntt_pass_plan(n, k_max)):
+        pos, lo = (t.to(x.device) for t in ntt_pass_tiles(n, s_lo, s_hi, g == 0))
+        if g == 0:
+            src = torch.from_numpy(_bit_reverse_perm(n)).to(x.device)[pos & ~((1 << skip) - 1)]
+            y = torch.where((src < n_nonzero)[None, :, :, None], x[:, src], 0)
+        else:
+            y = work[:, pos]
+        ntiles, size = pos.shape
+        y = y.reshape(batch * ntiles, size, L)
+        lo = lo.repeat(batch)
+        for s in range(max(skip, s_lo), s_hi):
+            y = _dit_stage(y, lf, tw, s, log_n, s_lo, lo)
+        work[:, pos] = y.reshape(batch, ntiles, size, L)
+    if inverse:
+        work = lf.mul(work, tables.n_inv)
+    return work.to(torch.int32)
 
 
 def _check_kernel_shape(x: torch.Tensor, what: str) -> int:
@@ -452,9 +537,9 @@ def ntt_tile_stages(x: torch.Tensor, tables: NttTables, s0: int, s1: int, *,
 def ntt_stages(words: torch.Tensor, tables: NttTables, s0: int,
                inverse: bool = False) -> torch.Tensor:
     """Radix-2 DIT stages s0 .. log2(n)-1 over whole rows of (batch, n, W)
-    words, then the limbs (batch, n, L): on a CUDA tensor K1's own stage
-    launches and unpack (``csrc/ntt.cu`` ``lcpc_ntt_stages``, counted as K1;
-    the words are transformed in place), on a CPU tensor :func:`_ntt_core`."""
+    words, then the limbs (batch, n, L): on a CUDA tensor K1's own passes
+    from stage s0 on (``csrc/ntt.cu`` ``lcpc_ntt_stages``, counted as K1; the
+    words are transformed in place), on a CPU tensor :func:`_ntt_core`."""
     batch, n, W = words.shape
     if n != tables.n or W != tables.spec.num_limbs16 // 2 or not 0 <= s0 <= n.bit_length() - 1:
         raise ValueError(f"ntt_stages: words {tuple(words.shape)}, stages from {s0}, "
@@ -625,7 +710,7 @@ def ntt_fused_small(x: torch.Tensor, spec: FieldSpec, n_nonzero: int | None = No
        (the forward transform's pruned stages; positions at or past
        n_nonzero must be zero);
     2. KT: every stage with half below the tile T = min(tile, n), limbs in;
-    3. K1's stage launches for the stages with half >= T, and its unpack;
+    3. K1's passes for the stages with half >= T, unpacking in the last;
     4. the inverse's n^-1 product, KM with one broadcast row.
 
     ``tile`` is a power of two up to :data:`TILE_MAX`.  KT's and KM's calls
