@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, one or more lines each: environment; kernel build from csrc/ (one
 nvcc per source, in parallel; ptxas's registers and spills of K1's pass
-kernel); each hand-written kernel against its plain
+kernel, K5 and the collapse); each hand-written kernel against its plain
 PyTorch version on the card (bit-exact), K1 and K4's inverse at the edges
 of their pass plan (n = 2^10, 2^11, 2^20, 2^21; one, two, two and three
 passes) on five fields, K5 on every field, on a level of
@@ -24,7 +24,11 @@ same inputs, and KT, KM and the routes timed beside K1 there; the
 Brakedown path (SdigCode3,
 ft255, seed 0, 2^21: one commit, prove + verify at two points, proof bytes,
 root against the plain versions', the streamed root); one Brakedown commit,
-prove and verify at 2^25, and its streamed commit and proof; the streamed
+prove and verify at 2^25, and its streamed commit and proof; K5, K3 and
+K3p at every shape their paths give them (the 2^21 encode at b = 18, the
+2^25 encode at b = 143, 32 and 2, the collapses of the Ligero 2^20 and
+Brakedown 2^21 and 2^25 proves, a 2^29 prove batch and a PoS left-multiply
+batch) against their plain versions and timed, with K5's slot use; the streamed
 kernels (K3p on five fields, chunk CVs and merge on three) against their
 plain versions and the synthetic pin of tests/test_torch_streamed.py on
 CUDA; the streamed Ligero ft255 path at 2^25 in all six keep_comm x
@@ -280,12 +284,19 @@ def check_kernels(res: Results, dev) -> None:
                 merkle_array(leaves, blake3.merkle_parents),
                 merkle_array(leaves, blake3.merkle_parents_plain))
 
+    # the row warps of collapse_plan: 8 (Ligero 2^20, few columns, T past the
+    # tensor tile), 4, 2 and 1 (many columns) on every field
     for spec, rows, npr, T in ((FT255, 128, 8192, 2), (FT63, 3000, 512, 2),
                                (FT255, 2500, 64, 1), (FT127, 128, 1024, 2),
-                               (FT191, 2100, 256, 2), (FT255, 18, 4099, 2)):
+                               (FT191, 2100, 256, 2), (FT255, 18, 4099, 2),
+                               (FT255, 1000, 40, 5), (FT63, 37, 100, 9), (FT191, 20, 3000, 3),
+                               (FT127, 9, 70, 1), (FT253_192, 70, 200, 2),
+                               (FT63, 16, 140000, 1), (FT191, 12, 140001, 2),
+                               (FT127, 40, 300000, 5)):
         c = torch.from_numpy(random_limbs(rng, (rows, npr), spec)).to(dev)
         t = torch.from_numpy(random_limbs(rng, (T, rows), spec)).to(dev)
-        res.compare("collapse", f"{spec.name} rows={rows} npr={npr} T={T}",
+        res.compare("collapse", f"{spec.name} rows={rows} npr={npr} T={T} (row warps "
+                    f"{collapse.collapse_plan(rows, npr, T, spec.num_limbs16).row_warps})",
                     collapse.collapse(c, t, spec), collapse.collapse_plain(c, t, spec))
     check_ntt_passes(res, dev)
 
@@ -321,7 +332,9 @@ def check_ntt_passes(res: Results, dev) -> None:
 
 def check_expander(res: Results, dev) -> None:
     """K5 against gather_matvec_plain on the card, bit-exact: every field on
-    the levels of an n = 3000 code at b in {1, 3, 18}; a synthetic ft255
+    the levels of an n = 3000 code at b in {1, 3, 9, 18, 33} (past the
+    kernel's batch tile, ops/expander.py b_tile, and ragged: two batch rows a
+    thread from 32 on at W >= 6); a synthetic ft255
     level of 3000 slots (beyond the TPU one-pass kernel's 2048); a level
     whose row count is not a multiple of the kernel's 128-row block; all 12
     levels of one 2^21 ft255 SdigCode3 encode."""
@@ -333,7 +346,7 @@ def check_expander(res: Results, dev) -> None:
     rng = np.random.default_rng(SEED + 5)
     for spec in (FT63, FT127, FT191, FT255, FT253_192):
         enc = ex.ExpanderEncoder.build(3000, 1, spec, ex.SDIG_CODE_3).on(dev)
-        for b in (1, 3, 18):
+        for b in (1, 3, 9, 18, 33):
             for name, tab in (("pre0", enc.pre[0]), ("post0", enc.post[0]),
                               ("post1", enc.post[1])):
                 x = torch.from_numpy(random_limbs(rng, (b, tab.cols), spec)).to(dev)
@@ -889,16 +902,40 @@ def ligero_path(res: Results, dev, card: str) -> None:
 
 def expander_bound(levels, spec) -> tuple[float, str]:
     """Bound of the K5 calls of one encode: each level's x, used table slots
-    and counts read once, y written once; 2 W^2 operations a slot product of
-    W-word elements (W = L/2), as for the other kernels."""
+    (a column index and W words), counts and row order read once, y written
+    once; 2 W^2 operations a slot product of W-word elements (W = L/2), as
+    for the other kernels."""
     L = spec.num_limbs16
     W = L // 2
     nbytes = ops = 0
     for tab, x in levels:
         b, used = x.shape[0], int(tab.counts.sum())
-        nbytes += (b * tab.cols + b * tab.rows) * L * 4 + used * (4 + 4 * L) + tab.rows * 4
+        nbytes += (b * tab.cols + b * tab.rows) * L * 4 + used * (4 + 4 * W) + tab.rows * 8
         ops += b * used * W * W * 2
     return bound(nbytes, ops)
+
+
+def slot_use(counts) -> tuple[int, int]:
+    """(nonzeros, slot iterations) of K5's warps on a level: a warp of 32
+    neighbouring table rows (in the order the tables store them) runs as many
+    slots as its longest row."""
+    import torch
+    c = counts.to(torch.int64).cpu()
+    c = torch.nn.functional.pad(c, (0, -len(c) % 32)).view(-1, 32)
+    return int(c.sum()), 32 * int(c.max(dim=1).values.sum())
+
+
+def encode_levels(enc, x, spec):
+    """The (table, input) of every K5 call of one encode of x."""
+    from lcpc_proof_of_storage_tpu_torch.ops import expander as ex
+    levels = []
+
+    def capture(tab, xin, field):
+        levels.append((tab, xin))
+        return ex.gather_matvec(tab, xin, field)
+
+    enc.encode(x, matvec=capture)
+    return levels
 
 
 def brakedown_path(res: Results, dev, card: str) -> None:
@@ -991,13 +1028,7 @@ def brakedown_path(res: Results, dev, card: str) -> None:
         f"verify {t_verify:.3f} ms, encode {t_encode:.3f} ms at 2^{BD_LOG2} {spec.name} "
         f"(medians of {N_TIMED})")
 
-    levels = []
-
-    def capture(tab, xin, field):
-        levels.append((tab, xin))
-        return ex.gather_matvec(tab, xin, field)
-
-    enc.encoder.encode(x_in, matvec=capture)
+    levels = encode_levels(enc.encoder, x_in, spec)
     res.bound["expander"] = expander_bound(levels, spec)
     timed_pair(res, "expander",
                lambda: [ex.gather_matvec(t, x, spec) for t, x in levels],
@@ -1118,6 +1149,86 @@ def brakedown_big(res: Results, dev, card: str) -> None:
         f"{so['t'][1] * 1e3:.1f} ms; launches {st_launches}")
 
 
+def expander_collapse_kernels(res: Results, dev, card: str) -> None:
+    """K5, K3 and K3p at every shape their paths give them, each against its
+    plain version (bit-exact) and timed beside its bound: K5 over the 12
+    levels of one encode at 2^21, b = 18 (the commit), and at 2^25, b = 143
+    (the one-shot commit), 32 (a streamed commit batch) and 2 (verify); the
+    collapse of the Ligero 2^20 prove (128, 8192, 16), of the Brakedown 2^21
+    and 2^25 proves (18, 117587, 16) and (143, 235172, 16), all int32 and
+    T = 2; K3p on one 2^29 prove batch (128, 262144, 16) 16-bit, T = 2, and
+    on one 1 GiB PoS left-multiply batch (585, 16384, 4) 16-bit, T = 1, each
+    with an accumulator.  Also the slot use of K5's warps at 2^21 and 2^25.
+    It uses only the ops' public entries, so it times an older checkout of
+    the port too."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import BrakedownEncoding
+    from lcpc_proof_of_storage_tpu_torch.fields import FT255, WRITEABLE_FT63
+    from lcpc_proof_of_storage_tpu_torch.fields.limb import narrow_limbs
+    from lcpc_proof_of_storage_tpu_torch.ops import collapse
+    from lcpc_proof_of_storage_tpu_torch.ops import expander as ex
+
+    spec = FT255
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 26)
+    for log2, n_rows, bs in ((BD_LOG2, BD_DIMS[0], ((BD_DIMS[0], "the commit"),)),
+                             (BD_LOG2_BIG, BD_DIMS_BIG[0],
+                              ((BD_DIMS_BIG[0], "the one-shot commit"),
+                               (32, "a streamed commit batch"), (2, "verify")))):
+        enc = BrakedownEncoding.new(1 << log2, seed=0, field=spec).encoder
+        use = [slot_use(t.counts) for t in (*enc.pre, *enc.post)]
+        nnz, runs = sum(u[0] for u in use), sum(u[1] for u in use)
+        say(f"expander slot use at 2^{log2}: {nnz} nonzeros a batch row in {runs} slot "
+            f"iterations of K5's warps, {nnz / runs:.4f}; by level "
+            f"{[round(u[0] / u[1], 4) for u in use]}")
+        enc = enc.on(dev)
+        for b, what in bs:
+            x = random_limbs_device(gen, (b, enc.n_per_row), spec, dev)
+            levels = encode_levels(enc, x, spec)
+            t0 = time.perf_counter()
+            for tab, xin in levels:
+                res.compare("expander", "", ex.gather_matvec(tab, xin, spec),
+                            ex.gather_matvec_plain(tab, xin, spec), quiet=True)
+            torch.cuda.synchronize()
+            t_plain = (time.perf_counter() - t0) * 1e3
+            b_ms, b_by = expander_bound(levels, spec)
+            k = [event_ms(lambda: [ex.gather_matvec(t, xi, spec) for t, xi in levels])
+                 for _ in range(2)]
+            say(f"time [{card}]: expander the {len(levels)} levels of one 2^{log2} encode "
+                f"(b={b}, {what}), each bit-exact against plain: kernel {k[0]:.4f}/{k[1]:.4f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}); plain with the comparison {t_plain:.1f} ms")
+            del x, levels
+            free_device(dev)
+        del enc
+
+    for fspec, rows, npr, T, bits, what in (
+            (FT255, 128, 8192, 2, 32, f"the Ligero 2^{LOG2_MAIN} prove"),
+            (FT255, *BD_DIMS[:2], 2, 32, f"the Brakedown 2^{BD_LOG2} prove"),
+            (FT255, *BD_DIMS_BIG[:2], 2, 32, f"the Brakedown 2^{BD_LOG2_BIG} prove"),
+            (FT255, 128, ST_DIMS[1], 2, 16, f"one 2^{ST_LOG2} prove batch"),
+            (WRITEABLE_FT63, 585, 16384, 1, 16, "one 1 GiB PoS left-multiply batch")):
+        L, W = fspec.num_limbs16, fspec.num_limbs16 // 2
+        c = random_limbs_device(gen, (rows, npr), fspec, dev)
+        if bits == 16:
+            c = narrow_limbs(c)
+        t = random_limbs_device(gen, (T, rows), fspec, dev)
+        acc = random_limbs_device(gen, (T, npr), fspec, dev) if bits == 16 else None
+        name = "collapse" if acc is None else "collapse_acc"
+        shape = (f"({rows}, {npr}, {L}) {'int32' if bits == 32 else '16-bit'} T={T}"
+                 f"{' + acc' if acc is not None else ''} ({what})")
+        res.compare(name, shape, collapse.collapse(c, t, fspec, acc=acc),
+                    collapse.collapse_plain(c, t, fspec, acc=acc))
+        b_ms, b_by = bound(rows * npr * L * bits // 8 + (T * rows + T * npr * (2 if acc is not None
+                                                                            else 1)) * L * 4,
+                           2 * T * rows * npr * W * W)
+        k = [event_ms(lambda: collapse.collapse(c, t, fspec, acc=acc)) for _ in range(2)]
+        p = event_ms(lambda: collapse.collapse_plain(c, t, fspec, acc=acc), 1)
+        say(f"time [{card}]: {name} {shape}: kernel {k[0]:.4f}/{k[1]:.4f} ms, plain {p:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        del c, t, acc
+        free_device(dev)
+
+
 # --------------------------------------------------------------------------
 # the streamed (out-of-core) commit and prove
 # --------------------------------------------------------------------------
@@ -1187,11 +1298,13 @@ def check_streamed_kernels(res: Results, dev) -> None:
 
     rng = np.random.default_rng(SEED + 3)
     for spec, rows, npr in ((FT63, 3000, 77), (FT127, 2100, 300), (FT191, 2049, 129),
-                            (FT255, 2500, 191), (FT253_192, 2200, 100)):
+                            (FT255, 2500, 191), (FT253_192, 2200, 100), (FT63, 16, 140000),
+                            (FT191, 12, 140001)):
         c16 = narrow_limbs(torch.from_numpy(random_limbs(rng, (rows, npr), spec)).to(dev))
         t = torch.from_numpy(random_limbs(rng, (2, rows), spec)).to(dev)
         acc = torch.from_numpy(random_limbs(rng, (2, npr), spec)).to(dev)
-        res.compare("collapse_acc", f"{spec.name} 16-bit rows={rows} npr={npr} T=2 + acc",
+        res.compare("collapse_acc", f"{spec.name} 16-bit rows={rows} npr={npr} T=2 + acc "
+                    f"(row warps {collapse.collapse_plan(rows, npr, 2, spec.num_limbs16).row_warps})",
                     collapse.collapse(c16, t, spec, acc=acc),
                     collapse.collapse_plain(c16, t, spec, acc=acc))
         if spec is FT255:
@@ -2144,6 +2257,7 @@ PHASES = (
     ("ligero", ligero_path),
     ("brakedown", brakedown_path),
     ("brakedown_big", brakedown_big),
+    ("expander_collapse_kernels", expander_collapse_kernels),
     ("streamed_kernels", lambda res, dev, card: check_streamed_kernels(res, dev)),
     ("streamed_modes", streamed_modes),
     ("streamed_device", streamed_device),
@@ -2180,7 +2294,8 @@ def main() -> int:
     kernels.library()
     say(f"build: csrc/*.cu -> {so} in {time.perf_counter() - t0:.1f} s")
     for line in (so.parent / "nvcc.log").read_text().splitlines():
-        if ("expander_matvec" in line or "ntt_pass" in line or "Used" in line
+        if ("expander_matvec" in line or "collapse" in line or "ntt_pass" in line
+                or "Used" in line
                 or ("spill" in line and "0 bytes spill stores" not in line)):
             say(f"build: {line.strip()}")
     t0 = time.perf_counter()

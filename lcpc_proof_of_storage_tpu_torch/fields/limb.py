@@ -50,6 +50,12 @@ class LimbField:
             self._mu[m] = _int_to_limbs(mu_int, max(1, (mu_int.bit_length() + 15) // 16))
         return self._mu[m]
 
+    @functools.cached_property
+    def wide_consts(self) -> tuple[np.ndarray, np.ndarray]:
+        """The host uint32 arrays K3 and K5 take: p's limbs and those of
+        mu(2L + 2)."""
+        return np.asarray(self.p, np.uint32), np.asarray(self.mu(2 * self.L + 2), np.uint32)
+
     def _const(self, limbs: list[int], like: torch.Tensor) -> torch.Tensor:
         return torch.tensor(limbs, dtype=I64, device=like.device)
 

@@ -158,9 +158,9 @@ BLAKE3_MERGE_CVS = Kernel("lcpc_blake3_merge_cvs", [P, P, I, I, P])
 _COLLAPSE_ARGS = [P, I, P, P, P, I, I, I, I, P, P, I, P]
 COLLAPSE = Kernel("lcpc_collapse", _COLLAPSE_ARGS)
 COLLAPSE_ACC = Kernel("lcpc_collapse", _COLLAPSE_ARGS)
-# csrc/expander.cu: x, idx, vals, counts, out, b, cols, rows, L, p_host, mu_host, mu_len,
-# stream
-EXPANDER = Kernel("lcpc_expander_matvec", [P, P, P, P, P, I, I, I, I, P, P, I, P])
+# csrc/expander.cu: x, idx, vals, counts, order, out, b, cols, rows, L, p_host, mu_host,
+# mu_len, stream
+EXPANDER = Kernel("lcpc_expander_matvec", [P, P, P, P, P, P, I, I, I, I, P, P, I, P])
 
 KERNELS = {"ntt": NTT_FORWARD, "ntt_inverse": NTT_INVERSE, "blake3_leaves": BLAKE3_LEAVES,
            "blake3_parents": BLAKE3_PARENTS, "blake3_chunk_cvs": BLAKE3_CHUNK_CVS,

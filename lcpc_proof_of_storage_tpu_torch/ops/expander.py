@@ -538,14 +538,23 @@ def _to_gather_np(mat: SparseCode, field: FieldSpec) -> GatherMat:
 # device mat-vec
 # --------------------------------------------------------------------------
 
-MAX_SLOTS = 1 << 26   # int64 / uint64 digit sums stay exact below 2^26 slots (L <= 16)
+MAX_SLOTS = (1 << 31) - 1   # csrc/wide.cuh kMaxTerms: K5's sums are exact to this many slots
+_PLAIN_SLOTS = 1 << 24      # gather_matvec_plain carries its int64 digit sums this often
+
+
+def b_tile(W: int, b: int) -> int:
+    """Batch rows a K5 thread sums at once (csrc/wide.cuh expander_b_tile)."""
+    return (2 if b >= 32 else 1) if W >= 6 else 8 // W
 
 
 class GatherTables(torch.nn.Module):
-    """One level's row-gather tables in the kernel's layout: ``idx`` (K, rows)
-    int32, ``vals`` (K, L, rows) int32 (neighbouring rows adjacent, so the
-    threads of a warp read neighbouring words) and ``counts`` (rows,) int32,
-    the slots in use per row (1 + its last nonzero slot)."""
+    """One level's row-gather tables in the kernel's layout, rows ordered by
+    their slot count, longest first, so that the 32 rows of a K5 warp run
+    near-equal loops: table row r holds output row ``order[r]``.  ``idx``
+    (K, rows) int32, ``vals`` (K, W, rows) int32 holding the values' W = L/2
+    32-bit words (neighbouring rows adjacent, so the threads of a warp read
+    neighbouring words), ``counts`` (rows,) int32, the slots in use per table
+    row (1 + its last nonzero slot), and ``order`` (rows,) int32."""
 
     def __init__(self, gm: GatherMat):
         super().__init__()
@@ -553,58 +562,76 @@ class GatherTables(torch.nn.Module):
         if gm.vals.shape[:2] != (K, rows) or rows != gm.rows:
             raise ValueError(f"GatherMat idx {gm.idx.shape} and vals {gm.vals.shape} differ")
         if K > MAX_SLOTS:
-            raise ValueError(f"{K} gather slots: the digit sums are exact below {MAX_SLOTS}")
+            raise ValueError(f"{K} gather slots: K5's sums are exact to {MAX_SLOTS}")
         self.rows, self.cols = gm.rows, gm.cols
-        nz = (np.asarray(gm.vals) != 0).any(axis=-1)                 # (K, rows)
+        limbs = np.asarray(gm.vals, np.uint32)                       # (K, rows, L)
+        nz = (limbs != 0).any(axis=-1)                               # (K, rows)
         counts = np.where(nz.any(0), K - np.argmax(nz[::-1], axis=0), 0)
-        self.register_buffer("idx", torch.from_numpy(np.ascontiguousarray(gm.idx, np.int32)))
+        order = np.argsort(-counts, kind="stable")
+        words = limbs[..., 0::2] | (limbs[..., 1::2] << 16)          # (K, rows, W)
+        self.register_buffer("idx", torch.from_numpy(
+            np.ascontiguousarray(np.asarray(gm.idx, np.int32)[:, order])))
         self.register_buffer("vals", torch.from_numpy(np.ascontiguousarray(
-            np.asarray(gm.vals, np.uint32).transpose(0, 2, 1)).view(np.int32)))
-        self.register_buffer("counts", torch.from_numpy(counts.astype(np.int32)))
+            words[:, order].transpose(0, 2, 1)).view(np.int32)))
+        self.register_buffer("counts", torch.from_numpy(counts[order].astype(np.int32)))
+        self.register_buffer("order", torch.from_numpy(order.astype(np.int32)))
 
     @property
     def slots(self) -> int:
         return self.idx.shape[0]
 
 
+def _word_limbs(words: torch.Tensor) -> torch.Tensor:
+    """(..., W) int32 words -> (..., 2W) int64 16-bit limbs."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack((w & 0xFFFF, w >> 16), dim=-1).flatten(-2)
+
+
 def gather_matvec_plain(tab: GatherTables, x: torch.Tensor, field: FieldSpec) -> torch.Tensor:
     """y = A x for batched x (b, cols, L) -> (b, rows, L) int32: the
     reference's slot loop (one gather and one exact limb product per slot,
-    summed unreduced in int64, one Barrett at the end), on x's device."""
+    summed unreduced in int64, one Barrett at the end) over the kernel's
+    tables, the words split into limbs, the rows put back in order; on x's
+    device."""
     lf = limb_field(field)
-    acc = torch.zeros((x.shape[0], tab.rows, 2 * lf.L), dtype=torch.int64, device=x.device)
+    width = 2 * lf.L + 2
+    acc = torch.zeros((x.shape[0], tab.rows, width), dtype=torch.int64, device=x.device)
     for k in range(tab.slots):
         xg = x[:, tab.idx[k].long()]                                  # (b, rows, L)
-        acc += lf._mul_digits(tab.vals[k].t()[None], xg)
-    return lf.barrett_reduce(lf._carry_norm(acc, 2 * lf.L + 2)).to(torch.int32)
+        acc[..., :2 * lf.L] += lf._mul_digits(_word_limbs(tab.vals[k].t())[None], xg)
+        if k % _PLAIN_SLOTS == _PLAIN_SLOTS - 1:
+            acc = lf._carry_norm(acc, width)
+    y = lf.barrett_reduce(lf._carry_norm(acc, width)).to(torch.int32)
+    out = torch.empty_like(y)
+    out[:, tab.order.long()] = y
+    return out
 
 
 def gather_matvec(tab: GatherTables, x: torch.Tensor, field: FieldSpec) -> torch.Tensor:
     """One expander level (K5 on CUDA, :func:`gather_matvec_plain` on CPU)."""
     b, cols, L = x.shape
-    if cols != tab.cols or L != field.num_limbs16 or tab.vals.shape[1] != L:
+    if cols != tab.cols or L != field.num_limbs16 or 2 * tab.vals.shape[1] != L:
         raise ValueError(f"gather_matvec: x {tuple(x.shape)} against a level of "
                          f"{tab.cols} columns ({field.name})")
     if x.device.type == "cpu":
         return gather_matvec_plain(tab, x, field)
     kernels.check_cuda("gather_matvec x", x, torch.int32)
-    for name in ("idx", "vals", "counts"):
+    for name in ("idx", "vals", "counts", "order"):
         t = getattr(tab, name)
         kernels.check_cuda(f"gather_matvec {name}", t, torch.int32)
         if t.device != x.device:
             raise ValueError(f"gather_matvec: {name} on {t.device}, x on {x.device}")
-    if L not in (4, 8, 12, 16) or x.data_ptr() % 16 or tab.rows > 65535 * 128:
+    if (L not in (4, 8, 12, 16) or x.data_ptr() % 16 or tab.rows >= 1 << 31
+            or -(-b // b_tile(L // 2, b)) > 65535):
         raise ValueError(f"expander kernel: unsupported x {tuple(x.shape)} or {tab.rows} rows")
-    lf = limb_field(field)
-    p = np.asarray(lf.p, dtype=np.uint32)
-    mu = np.asarray(lf.mu(2 * L + 2), dtype=np.uint32)
+    p, mu = limb_field(field).wide_consts
     out = torch.empty((b, tab.rows, L), dtype=torch.int32, device=x.device)
     if b == 0 or tab.rows == 0:
         return out
     with torch.cuda.device(x.device):
         kernels.EXPANDER(kernels.ptr(x), kernels.ptr(tab.idx), kernels.ptr(tab.vals),
-                         kernels.ptr(tab.counts), kernels.ptr(out), b, cols, tab.rows, L,
-                         kernels.ptr(p), kernels.ptr(mu), len(mu),
+                         kernels.ptr(tab.counts), kernels.ptr(tab.order), kernels.ptr(out), b,
+                         cols, tab.rows, L, kernels.ptr(p), kernels.ptr(mu), len(mu),
                          kernels.stream_of(x))
     return out
 

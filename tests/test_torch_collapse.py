@@ -9,7 +9,7 @@ import torch
 
 from lcpc_proof_of_storage_tpu.fields.field import FT63, FT127, FT191, FT255, ints_to_limbs
 from lcpc_proof_of_storage_tpu.fields.limb import limb_field as jax_limb_field
-from lcpc_proof_of_storage_tpu_torch.ops.collapse import collapse, collapse_plain
+from lcpc_proof_of_storage_tpu_torch.ops.collapse import collapse, collapse_plain, collapse_plan
 
 torch.set_num_threads(1)
 
@@ -55,3 +55,39 @@ def test_collapse_off_cpu_never_falls_back_to_plain():
     c = torch.zeros((4, 8, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         collapse(c, torch.zeros((1, 4, 4), dtype=torch.int32, device="meta"), FT63)
+
+
+@pytest.mark.parametrize("rows,npr,T,L", [
+    (128, 8192, 2, 16),      # Ligero 2^20 prove: few columns, 8 row warps
+    (585, 16384, 1, 4),      # the PoS left-multiply
+    (128, 262144, 2, 16),    # a 2^29 prove batch: one row warp
+    (18, 117587, 2, 16), (37, 100, 9, 4), (20, 3000, 3, 12), (9, 70, 1, 8), (3, 5, 7, 16),
+])
+def test_collapse_plan_covers_every_row_and_output_once(rows, npr, T, L):
+    """The kernel's plan (mirrored from csrc/collapse.cu): every output (t, j)
+    belongs to one thread and tensor slot of one block, and the rows of every
+    output are split over its column group's row warps, each row once."""
+    plan = collapse_plan(rows, npr, T, L)
+    rw, tt_n, (gx, gy) = plan.row_warps, plan.t_tile, plan.grid
+    assert rw in (1, 2, 4, 8) and plan.cols_a_block * rw == 32 * 8
+    assert rw == 1 or rows >= 4 * rw
+    finished = np.zeros((T, npr), np.int64)      # the thread that reduces and stores (t, j)
+    summed = np.zeros((T, npr), np.int64)        # rows summed into (t, j)
+    bx = np.arange(gx)[:, None, None]
+    for by in range(gy):
+        for warp in range(8):
+            cg, wr = divmod(warp, rw)
+            j = ((bx * (8 // rw) + cg) * 32 + np.arange(32)[None, None, :]).ravel()
+            j = j[j < npr]
+            for tt in range(tt_n):
+                t = by * tt_n + tt
+                if t >= T:
+                    continue
+                summed[t, j] += len(plan.rows_of(wr, rows))
+                if tt % rw == wr:
+                    finished[t, j] += 1
+    assert (finished == 1).all() and (summed == rows).all()
+    seen = np.zeros(rows, np.int64)
+    for wr in range(rw):
+        seen[list(plan.rows_of(wr, rows))] += 1
+    assert (seen == 1).all()

@@ -103,19 +103,37 @@ def test_gather_matvec_plain_matches_reference(name, n, b):
 
 
 def test_gather_tables_layout_and_counts():
-    """vals is (K, L, rows); counts stop at each row's last nonzero slot, and
-    padded slots (index 0, value 0) add nothing."""
+    """K5's tables: vals is (K, W, rows) 32-bit words; the rows are ordered
+    by slot count, longest first (table row r holds output row order[r]);
+    counts stop at each row's last nonzero slot; read back through the order,
+    the tables hold every (row, slot) of the GatherMat once; padded slots
+    (index 0, value 0) add nothing."""
     rng = np.random.default_rng(11)
     K, rows, cols, L = 5, 7, 9, FT63.num_limbs16
+    W = L // 2
     idx = rng.integers(0, cols, size=(K, rows)).astype(np.int32)
     vals = _x(FT63, K, rows, 11).astype(np.uint32)
     vals[3:, 0] = 0                      # row 0 uses 3 slots
     vals[:, 1] = 0                       # row 1 none
     vals[2, 2] = 0                       # row 2: a zero inside, 5 slots counted
+    vals[4:, 3] = 0                      # row 3 uses 4
     tab = ex.GatherTables(ex.GatherMat(rows, cols, idx, vals))
-    assert tab.vals.shape == (K, L, rows)
-    assert np.array_equal(tab.vals[1, :, 4].numpy(), vals[1, 4].astype(np.int32))
-    assert tab.counts.tolist()[:3] == [3, 0, 5]
+    order, counts = tab.order.numpy(), tab.counts.numpy()
+    assert tab.vals.shape == (K, W, rows) and tab.idx.shape == (K, rows)
+    assert sorted(order.tolist()) == list(range(rows))
+    assert (np.diff(counts) <= 0).all()
+    assert counts[np.argsort(order)].tolist() == [3, 0, 5, 4, 5, 5, 5]
+    covered = [(int(order[r]), s) for r in range(rows) for s in range(counts[r])]
+    assert len(covered) == len(set(covered)) == counts.sum()
+    assert set(covered) == {(r, s) for r, n in enumerate([3, 0, 5, 4, 5, 5, 5])
+                            for s in range(n)}
+    words = tab.vals.numpy().view(np.uint32)
+    limbs = np.stack([words & 0xFFFF, words >> 16], axis=2).reshape(K, L, rows)
+    back_vals = np.empty_like(vals)
+    back_vals[:, order] = limbs.transpose(0, 2, 1)
+    back_idx = np.empty_like(idx)
+    back_idx[:, order] = tab.idx.numpy()
+    assert np.array_equal(back_vals, vals) and np.array_equal(back_idx, idx)
     x = torch.from_numpy(_x(FT63, 2, cols, 12).astype(np.int32))
     y = ex.gather_matvec(tab, x, FT63)
     assert not y[:, 1].any()
