@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, one or more lines each: environment; kernel build from csrc/ (one
 nvcc per source, in parallel; ptxas's registers and spills of K1's pass
 kernel, K5 and the collapse); each hand-written kernel against its plain
-PyTorch version on the card (bit-exact), K1 and K4's inverse at the edges
+PyTorch version on the card (bit-exact), K2's leaves on eleven shapes (two
+with more chunks a message than a leaves block has threads) and its Merkle
+tree at 2^1, 2^11, 2^15 and 2^20 leaves, K1 and K4's inverse at the edges
 of their pass plan (n = 2^10, 2^11, 2^20, 2^21; one, two, two and three
 passes) on five fields, K5 on every field, on a level of
 3000 slots, on a ragged row count and on all 12 levels of a 2^21 encode;
@@ -28,7 +30,11 @@ prove and verify at 2^25, and its streamed commit and proof; K5, K3 and
 K3p at every shape their paths give them (the 2^21 encode at b = 18, the
 2^25 encode at b = 143, 32 and 2, the collapses of the Ligero 2^20 and
 Brakedown 2^21 and 2^25 proves, a 2^29 prove batch and a PoS left-multiply
-batch) against their plain versions and timed, with K5's slot use; the streamed
+batch) against their plain versions and timed, with K5's slot use; K2's
+leaves at the Ligero 2^20, Brakedown 2^25 and 2^21 commits' and a verify's
+shapes and the tree step over 2^15 and 2^20 leaves, timed, with the Ligero
+2^20 and Brakedown 2^21 commits (a phase that times an older checkout's
+package too, put first on sys.path); the streamed
 kernels (K3p on five fields, chunk CVs and merge on three) against their
 plain versions and the synthetic pin of tests/test_torch_streamed.py on
 CUDA; the streamed Ligero ft255 path at 2^25 in all six keep_comm x
@@ -49,7 +55,8 @@ on a 16 MiB file against the CPU writer's files, and on a 1 GiB file
 .porenc) with a 256 MiB whole upload and download; timings, peak device
 memory and host RSS.
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after.  The script prints a JSON line of per-kernel results
+and read just after, and fails if a Merkle array took more than two tree
+launches.  The script prints a JSON line of per-kernel results
 and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
 without that line, as does a machine with no CUDA device or a directory
 without the port.  It imports nothing of JAX.
@@ -211,6 +218,22 @@ def event_ms(fn, runs: int = N_EVENTS) -> float:
     return start.elapsed_time(end) / runs
 
 
+def device_ms(fn, runs: int = N_EVENTS) -> tuple[float, float]:
+    """(device milliseconds, kernels) a call of fn(): the kernel events
+    torch.profiler records over `runs` calls after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kern) / 1e3 / runs,
+            sum(e.count for e in kern) / runs)
+
+
 def timed_pair(res: Results, name: str, kern, plain, shape: str, card: str,
                plain_runs: int = 2) -> None:
     """Kernel and plain version in turns (plain, kernel, kernel, plain), CUDA
@@ -226,13 +249,34 @@ def timed_pair(res: Results, name: str, kern, plain, shape: str, card: str,
         f"{p1:.3f}/{p2:.3f} ms, bound {b:.4f} ms ({by})")
 
 
-def merkle_array(leaves, parents):
-    """Every layer above a power-of-two number of leaves, concatenated."""
-    import torch
-    layers = [leaves]
-    while layers[-1].shape[0] > 1:
-        layers.append(parents(layers[-1]))
-    return torch.cat(layers)
+def leaves_bound(n_rows: int, n_cols: int, spec) -> tuple[float, str]:
+    """K2 leaves: the limbs read once, the digests written once; a compression
+    a 64-byte block of each column message and a parent a chunk but one."""
+    msg = 32 + n_rows * spec.repr_bytes
+    return bound(n_rows * n_cols * spec.num_limbs16 * 4 + n_cols * 32,
+                 n_cols * (-(-msg // 64) + -(-msg // 1024) - 1) * BLAKE3_OPS)
+
+
+def tree_bound(np2: int) -> tuple[float, str]:
+    """K2 tree: the np2 leaves read once, the np2 - 1 parents written once,
+    a compression each."""
+    return bound((2 * np2 - 1) * 32, (np2 - 1) * BLAKE3_OPS)
+
+
+def tree_of(leaves):
+    """The Merkle array over power-of-two leaves, filled by the kernel."""
+    from lcpc_proof_of_storage_tpu_torch.ops import blake3
+    hashes = blake3.merkle_array(leaves.shape[0], leaves.device)
+    hashes[:leaves.shape[0]] = leaves
+    return blake3.merkle_tree(hashes)
+
+
+def tree_plain_of(leaves):
+    """The same Merkle array, layer by layer with the plain parents."""
+    from lcpc_proof_of_storage_tpu_torch.ops import blake3
+    hashes = blake3.merkle_array(leaves.shape[0], leaves.device)
+    hashes[:leaves.shape[0]] = leaves
+    return blake3.merkle_tree_plain(hashes)
 
 
 def horner(coeff_ints: list[int], x: int, p: int) -> int:
@@ -243,14 +287,19 @@ def horner(coeff_ints: list[int], x: int, p: int) -> int:
 
 
 def launches_of(run) -> dict[str, int]:
-    """Every kernel's launches in run(), counted from 0."""
+    """Every kernel's launches in run(), counted from 0.  Fails if a Merkle
+    array took more than two tree launches (none is wider than 2^20 leaves)."""
     import torch
     from lcpc_proof_of_storage_tpu_torch import kernels
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     run()
     torch.cuda.synchronize()
-    return {name: k.launches for name, k in kernels.KERNELS.items()}
+    counts = {name: k.launches for name, k in kernels.KERNELS.items()}
+    if counts["blake3_tree"] > 2 * kernels.BLAKE3_TREE.arrays:
+        raise AssertionError(f"{counts['blake3_tree']} tree launches for "
+                             f"{kernels.BLAKE3_TREE.arrays} Merkle arrays")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -272,17 +321,26 @@ def check_kernels(res: Results, dev) -> None:
             res.compare("ntt", f"{spec.name} batch={batch} n={n} n_nonzero={nnz}",
                         ntt.ntt(x, spec, nnz, tables), ntt.ntt_plain(x, spec, nnz, tables))
 
+    # the last two: more chunks a message than a leaves block has threads
+    # (258 in aligned pairs; 235 one a thread, one column a block)
     for spec, rows, cols in ((FT255, 128, 1024), (FT63, 1, 300), (FT255, 128, 189),
                              (FT253_192, 40, 100), (FT63, 300, 77), (FT127, 128, 189),
-                             (FT191, 70, 300), (FT255, 18, 4099), (FT255, 143, 300)):
+                             (FT191, 70, 300), (FT255, 18, 4099), (FT255, 143, 300),
+                             (FT63, 33000, 67), (FT191, 10000, 5)):
         m = torch.from_numpy(random_limbs(rng, (rows, cols), spec)).to(dev)
-        res.compare("blake3_leaves", f"{spec.name} rows={rows} cols={cols}",
+        plan = blake3.leaf_plan(rows, spec.repr_bytes)
+        res.compare("blake3_leaves", f"{spec.name} rows={rows} cols={cols} ({plan.nchunks} "
+                    f"chunks a column, {plan.group} a thread, {plan.cols} columns a block)",
                     blake3.hash_columns(m, spec), blake3.hash_columns_plain(m, spec))
-    leaves = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(1 << 15, 8),
-                                           dtype=np.int64).astype(np.int32)).to(dev)
-    res.compare("blake3_parents", "Merkle tree over 32768 leaves (all 15 layers)",
-                merkle_array(leaves, blake3.merkle_parents),
-                merkle_array(leaves, blake3.merkle_parents_plain))
+    for log2 in (1, 11, 15, 20):
+        leaves = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(1 << log2, 8),
+                                               dtype=np.int64).astype(np.int32)).to(dev)
+        out = {}
+        launches = launches_of(lambda: out.update(tree=tree_of(leaves)))
+        res.compare("blake3_tree", f"Merkle tree over 2^{log2} leaves ({log2} layers, "
+                    f"{launches['blake3_tree']} launches)", out["tree"], tree_plain_of(leaves))
+        if launches["blake3_tree"] != len(blake3.tree_plan(1 << log2)):
+            raise AssertionError(f"the tree over 2^{log2} leaves: launches {launches}")
 
     # the row warps of collapse_plan: 8 (Ligero 2^20, few columns, T past the
     # tensor tile), 4, 2 and 1 (many columns) on every field
@@ -751,14 +809,11 @@ def check_verify(dev) -> None:
 def plain_root(comm_plain, n_cols: int, spec) -> bytes:
     """Merkle root of an encoded matrix, with the plain hash versions."""
     import torch
-    from lcpc_proof_of_storage_tpu_torch.core.encoding import next_power_of_two
     from lcpc_proof_of_storage_tpu_torch.ops import blake3
-    leaves = blake3.hash_columns_plain(comm_plain, spec)
-    padded = leaves.new_zeros((next_power_of_two(n_cols), 8))
-    padded[:n_cols] = leaves
-    del leaves
+    hashes = blake3.merkle_array(n_cols, comm_plain.device)
+    hashes[:n_cols] = blake3.hash_columns_plain(comm_plain, spec)
     torch.cuda.empty_cache()
-    return blake3.digest_to_bytes(merkle_array(padded, blake3.merkle_parents_plain)[-1])
+    return blake3.digest_to_bytes(blake3.merkle_tree_plain(hashes)[-1])
 
 
 def transcript(root: bytes):
@@ -820,7 +875,7 @@ def ligero_path(res: Results, dev, card: str) -> None:
     comm, root = out["comm"], out["root"]
     say(f"ligero: root {root.hex()}; {N_POINTS} proofs verified with the evaluations "
         f"computed on the host; launches {launches}")
-    missing = [k for k in ("ntt", "blake3_leaves", "blake3_parents", "collapse")
+    missing = [k for k in ("ntt", "blake3_leaves", "blake3_tree", "collapse")
                if launches[k] == 0]
     if missing or launches["ntt_tile"] or launches["mul_mod"]:
         raise AssertionError(f"the Ligero path's launches {launches}")
@@ -869,16 +924,13 @@ def ligero_path(res: Results, dev, card: str) -> None:
             f"{length / (t_commit / 1e3):.0f} coefficients/s committed)")
 
     L = spec.num_limbs16
-    leaves = blake3.hash_columns(comm.comm, spec)
+    hashes = comm.hashes.clone()
     tvec = torch.from_numpy(random_limbs(rng, (2, n_rows), spec)).to(dev)
     W = L // 2
     skip = (n_cols // n_per_row).bit_length() - 1     # stages that only duplicate
     res.bound["ntt"] = ntt_bound(n_rows, n_cols, L, n_cols.bit_length() - 1 - skip)
-    msg_blocks = -(-(32 + n_rows * spec.repr_bytes) // 64)
-    chunks = -(-(32 + n_rows * spec.repr_bytes) // 1024)
-    res.bound["blake3_leaves"] = bound(n_rows * n_cols * L * 4 + n_cols * 32,
-                                       n_cols * (msg_blocks + chunks - 1) * BLAKE3_OPS)
-    res.bound["blake3_parents"] = bound(3 * n_cols * 32, (n_cols - 1) * BLAKE3_OPS)
+    res.bound["blake3_leaves"] = leaves_bound(n_rows, n_cols, spec)
+    res.bound["blake3_tree"] = tree_bound(n_cols)
     res.bound["collapse"] = bound((n_rows * n_per_row + 2 * n_rows + 2 * n_per_row) * L * 4,
                                   2 * n_rows * n_per_row * W * W * 2)
     timed_pair(res, "ntt", lambda: ntt.ntt(padded, spec, n_per_row, enc.tables(dev)),
@@ -888,13 +940,16 @@ def ligero_path(res: Results, dev, card: str) -> None:
     timed_pair(res, "blake3_leaves", lambda: blake3.hash_columns(comm.comm, spec),
                lambda: blake3.hash_columns_plain(comm.comm, spec),
                f"({n_rows}, {n_cols}, 16) -> ({n_cols}, 8)", card, plain_runs=1)
-    timed_pair(res, "blake3_parents", lambda: merkle_array(leaves, blake3.merkle_parents),
-               lambda: merkle_array(leaves, blake3.merkle_parents_plain),
-               f"all {n_cols.bit_length() - 1} layers over {n_cols} leaves", card, plain_runs=1)
+    timed_pair(res, "blake3_tree", lambda: blake3.merkle_tree(hashes),
+               lambda: blake3.merkle_tree_plain(hashes),
+               f"all {n_cols.bit_length() - 1} layers over {n_cols} leaves in "
+               f"{len(blake3.tree_plan(n_cols))} launches", card, plain_runs=1)
     timed_pair(res, "collapse", lambda: collapse.collapse(comm.coeffs, tvec, spec),
                lambda: collapse.collapse_plain(comm.coeffs, tvec, spec),
                f"({n_rows}, {n_per_row}, 16) T=2", card)
-    del encs, leaves, tvec
+    if not torch.equal(hashes, comm.hashes):
+        raise AssertionError("the timed trees differ from the commit's Merkle array")
+    del encs, hashes, tvec
     free_device(dev)
     time_ntt_routes(res, card, spec, padded, n_per_row, f"Ligero 2^{LOG2_MAIN} commit",
                     record=True)
@@ -992,7 +1047,7 @@ def brakedown_path(res: Results, dev, card: str) -> None:
     if launches["expander"] != n_levels * (1 + BD_POINTS):
         raise AssertionError(f"{launches['expander']} expander launches, expected "
                              f"{n_levels} per encode")
-    missing = [k for k in ("expander", "blake3_leaves", "blake3_parents", "collapse")
+    missing = [k for k in ("expander", "blake3_leaves", "blake3_tree", "collapse")
                if launches[k] == 0]
     if missing or launches["ntt"]:
         raise AssertionError(f"Brakedown path kernels: never launched {missing}, "
@@ -1089,7 +1144,7 @@ def brakedown_big(res: Results, dev, card: str) -> None:
     comm, root, blob_len, value = out["comm"], out["root"], len(out["blob"]), out["value"]
     t0, t1, t2, t3, t4 = out["t"]
     n_levels = len(enc.encoder.pre) + len(enc.encoder.post)
-    missing = [k for k in ("blake3_leaves", "blake3_parents", "collapse") if launches[k] == 0]
+    missing = [k for k in ("blake3_leaves", "blake3_tree", "collapse") if launches[k] == 0]
     # one encode in the commit and one in the verify
     if launches["expander"] != n_levels * 2 or missing or launches["ntt"]:
         raise AssertionError(f"Brakedown 2^{BD_LOG2_BIG} launches {launches}: expected "
@@ -1136,7 +1191,7 @@ def brakedown_big(res: Results, dev, card: str) -> None:
                              f"proof bytes {so['blob'] == out['blob']}")
     encodes = (len(_row_batches(n_rows, spec.repr_bytes, 32))
                + len(even_row_batches(n_rows, n_cols * spec.num_limbs16 * 4, None)))
-    missing = [k for k in ("blake3_chunk_cvs", "blake3_merge_cvs", "blake3_parents", "collapse")
+    missing = [k for k in ("blake3_chunk_cvs", "blake3_merge_cvs", "blake3_tree", "collapse")
                if st_launches[k] == 0]
     if (missing or st_launches["expander"] != n_levels * encodes or st_launches["ntt"]
             or st_launches["blake3_leaves"] or st_launches["collapse_acc"]):
@@ -1226,6 +1281,91 @@ def expander_collapse_kernels(res: Results, dev, card: str) -> None:
         say(f"time [{card}]: {name} {shape}: kernel {k[0]:.4f}/{k[1]:.4f} ms, plain {p:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
         del c, t, acc
+        free_device(dev)
+
+
+def blake3_kernels(res: Results, dev, card: str) -> None:
+    """K2's leaves and Merkle tree at their paths' shapes, each against its
+    plain version (bit-exact) and timed beside its bound: the leaves of the
+    Ligero 2^20 commit (128, 32768, 16), of the Brakedown 2^25 and 2^21
+    commits (143, 357697, 16) and (18, 178850, 16) and of a Ligero 2^20
+    verify (128, 189, 16), all ft255; the tree step of a commit over 2^15
+    and 2^20 leaves (core/commit.py merkle_tree_device, the leaves given)
+    with its launches; then the Ligero 2^20 and Brakedown 2^21 commits and
+    their roots.  It uses only the package's public entries, and the tree
+    step through whichever merkle_tree_device the package has, so with an
+    older checkout's package first on sys.path it times that one."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import (BrakedownEncoding, LigeroEncoding, commit,
+                                                 kernels)
+    from lcpc_proof_of_storage_tpu_torch.core import commit as core_commit
+    from lcpc_proof_of_storage_tpu_torch.fields import FT255
+    from lcpc_proof_of_storage_tpu_torch.ops import blake3
+
+    new = hasattr(blake3, "merkle_tree")      # an older package builds the tree layer by layer
+    tree_kernel = "blake3_tree" if new else "blake3_parents"
+    say(f"blake3_kernels: the package at {Path(blake3.__file__).parents[2]}")
+    spec = FT255
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 27)
+    for rows, cols, what in ((128, 32768, f"the Ligero 2^{LOG2_MAIN} commit"),
+                             (BD_DIMS_BIG[0], 357697, f"the Brakedown 2^{BD_LOG2_BIG} commit"),
+                             (BD_DIMS[0], BD_DIMS[2], f"the Brakedown 2^{BD_LOG2} commit"),
+                             (128, 189, f"a Ligero 2^{LOG2_MAIN} verify")):
+        m = random_limbs_device(gen, (rows, cols), spec, dev)
+        shape = f"({rows}, {cols}, 16) ft255 ({what})"
+        res.compare("blake3_leaves", shape, blake3.hash_columns(m, spec),
+                    blake3.hash_columns_plain(m, spec))
+        b_ms, b_by = leaves_bound(rows, cols, spec)
+        k = [event_ms(lambda: blake3.hash_columns(m, spec)) for _ in range(2)]
+        say(f"time [{card}]: blake3_leaves {shape}: kernel {k[0]:.4f}/{k[1]:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        del m
+        free_device(dev)
+
+    for log2 in (15, 20):
+        n = 1 << log2
+        leaves = torch.randint(-(1 << 31), 1 << 31, (n, 8), generator=gen, device=dev,
+                               dtype=torch.int64).to(torch.int32)
+        if new:
+            def tree_step():
+                return core_commit.merkle_tree_device(n, dev, lambda out: out.copy_(leaves))
+        else:
+            def tree_step():
+                return core_commit.merkle_tree_device(leaves, n)
+        layers = [leaves]
+        while layers[-1].shape[0] > 1:
+            layers.append(blake3.merkle_parents_plain(layers[-1]))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = tree_step()
+        torch.cuda.synchronize()
+        launches = kernels.KERNELS[tree_kernel].launches
+        res.compare(tree_kernel, f"Merkle tree over 2^{log2} leaves", got, torch.cat(layers))
+        b_ms, b_by = tree_bound(n)
+        k = [event_ms(tree_step) for _ in range(2)]
+        alone = ""
+        if new:
+            a = [event_ms(lambda: blake3.merkle_tree(got)) for _ in range(2)]
+            alone = f"; merkle_tree alone {a[0]:.4f}/{a[1]:.4f} ms"
+        d_ms, d_n = device_ms(tree_step)
+        say(f"time [{card}]: {tree_kernel} the tree step over 2^{log2} leaves, {launches} "
+            f"launches: {k[0]:.4f}/{k[1]:.4f} ms{alone}, bound {b_ms:.4f} ms ({b_by}); "
+            f"device {d_ms:.4f} ms in {d_n:.0f} kernels a call (torch.profiler)")
+        del leaves, layers, got
+        free_device(dev)
+
+    for name, log2 in (("ligero", LOG2_MAIN), ("brakedown", BD_LOG2)):
+        enc = (LigeroEncoding.new(1 << log2, spec, rho=(1, 4)) if name == "ligero"
+               else BrakedownEncoding.new(1 << log2, seed=0, field=spec))
+        coeffs = random_limbs_device(gen, (1 << log2,), spec, dev)
+        root = commit(coeffs, enc, device=dev).get_root().root
+        t = [cuda_ms(lambda: commit(coeffs, enc, device=dev), runs=10) for _ in range(2)]
+        d_ms, d_n = device_ms(lambda: commit(coeffs, enc, device=dev), runs=10)
+        say(f"time [{card}]: blake3_kernels {name} 2^{log2} commit {t[0]:.3f}/{t[1]:.3f} ms "
+            f"(medians of 10), device {d_ms:.3f} ms in {d_n:.0f} kernels a commit "
+            f"(torch.profiler), root {root.hex()}")
+        del coeffs, enc
         free_device(dev)
 
 
@@ -1470,7 +1610,7 @@ def streamed_device(res: Results, dev, card: str) -> None:
     comm = out["comm"]
     mem = device_memory_line(dev)
     res.add_launches(f"streamed_device_2^{ST_LOG2_DEVICE}", launches)
-    missing = [k for k in ("ntt", "blake3_chunk_cvs", "blake3_merge_cvs", "blake3_parents",
+    missing = [k for k in ("ntt", "blake3_chunk_cvs", "blake3_merge_cvs", "blake3_tree",
                            "blake3_leaves", "collapse") if launches[k] == 0]
     if missing or launches["collapse_acc"]:
         raise AssertionError(f"streamed 2^{ST_LOG2_DEVICE} launches {launches}")
@@ -1559,7 +1699,7 @@ def streamed_host(res: Results, dev, card: str) -> None:
     launches = launches_of(run)
     mem = device_memory_line(dev)
     res.add_launches(f"streamed_host_2^{ST_LOG2}", launches)
-    missing = [k for k in ("ntt", "blake3_chunk_cvs", "blake3_merge_cvs", "blake3_parents",
+    missing = [k for k in ("ntt", "blake3_chunk_cvs", "blake3_merge_cvs", "blake3_tree",
                            "blake3_leaves", "collapse_acc") if launches[k] == 0]
     if missing or launches["collapse"]:
         raise AssertionError(f"streamed 2^{ST_LOG2} launches {launches}")
@@ -2026,7 +2166,7 @@ def pos_small(res: Results, dev, card: str) -> None:
         res.add_launches("pos_small_16MiB", launches)
         meta = out["meta"]
         missing = [k for k in ("ntt", "ntt_inverse", "collapse_acc", "blake3_chunk_cvs",
-                               "blake3_merge_cvs", "blake3_parents") if launches[k] == 0]
+                               "blake3_merge_cvs", "blake3_tree") if launches[k] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the 16 MiB lifecycle: {missing}")
         cpu = {}
@@ -2058,9 +2198,9 @@ def pos_small(res: Results, dev, card: str) -> None:
             vals, 2048, 4096, WRITEABLE_FT63, device=dev).convert_to_commit_root()))
         roots["cpu"] = RowGenerator(vals, 2048, 4096, WRITEABLE_FT63,
                                     device="cpu").convert_to_commit_root()
-        if roots[dev] != roots["cpu"] or gen_launches["blake3_parents"] == 0:
+        if roots[dev] != roots["cpu"] or gen_launches["blake3_tree"] == 0:
             raise AssertionError(f"the row generator's root on the card differs from the CPU's, "
-                                 f"or its tree was not built by K2's parents: {gen_launches}")
+                                 f"or its tree was not built by K2's tree: {gen_launches}")
         say(f"pos_small: the evaluation vector ({len(evals[dev])} values) equals the CPU "
             f"handler's; the row generator's root (200 rows) equals the CPU's, launches "
             f"{ {k: v for k, v in gen_launches.items() if v} }")
@@ -2156,7 +2296,7 @@ def pos_path(res: Results, dev, card: str) -> None:
         launches = launches_of(lambda: asyncio.run(scenario()))
         res.add_launches(f"pos_{size >> 20}MiB", launches)
         missing = [k for k in ("ntt", "ntt_inverse", "collapse_acc", "blake3_chunk_cvs",
-                               "blake3_merge_cvs", "blake3_parents") if launches[k] == 0]
+                               "blake3_merge_cvs", "blake3_tree") if launches[k] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the pos path: {missing}")
         meta, m2 = out["meta"], out["m2"]
@@ -2227,8 +2367,8 @@ KERNEL_INFO = {
                     "lcpc_proof_of_storage_tpu/ops/ntt_pallas2.py:323,348 (inverse)"),
     "blake3_leaves": ("lcpc_proof_of_storage_tpu_torch/csrc/blake3.cu",
                       "lcpc_proof_of_storage_tpu/ops/blake3_pallas.py:139"),
-    "blake3_parents": ("lcpc_proof_of_storage_tpu_torch/csrc/blake3.cu",
-                       "lcpc_proof_of_storage_tpu/ops/blake3_jax.py:325"),
+    "blake3_tree": ("lcpc_proof_of_storage_tpu_torch/csrc/blake3.cu",
+                    "lcpc_proof_of_storage_tpu/ops/blake3_jax.py:325"),
     "collapse": ("lcpc_proof_of_storage_tpu_torch/csrc/collapse.cu",
                  "lcpc_proof_of_storage_tpu/ops/collapse_pallas.py:279"),
     "collapse_acc": ("lcpc_proof_of_storage_tpu_torch/csrc/collapse.cu",
@@ -2258,6 +2398,7 @@ PHASES = (
     ("brakedown", brakedown_path),
     ("brakedown_big", brakedown_big),
     ("expander_collapse_kernels", expander_collapse_kernels),
+    ("blake3_kernels", blake3_kernels),
     ("streamed_kernels", lambda res, dev, card: check_streamed_kernels(res, dev)),
     ("streamed_modes", streamed_modes),
     ("streamed_device", streamed_device),

@@ -28,7 +28,7 @@ from ..crypto.transcript import Transcript
 from ..fields.field import FieldSpec, ints_to_limbs, limbs_to_ints
 from ..fields.limb import limb_field
 from ..native import fold_paths_native
-from ..ops.blake3 import digest_to_bytes, digests_to_bytes, hash_columns, merkle_parents
+from ..ops.blake3 import digest_to_bytes, digests_to_bytes, hash_columns, merkle_array, merkle_tree
 from .encoding import (LABEL_CO, LABEL_DT, LABEL_PE, LABEL_PR, LcEncoding, ceil_log2,
                        next_power_of_two)
 from .storage import as_rows, limb_matrix
@@ -216,17 +216,15 @@ class LcCommit:
 # commit
 # --------------------------------------------------------------------------
 
-def merkle_tree_device(leaves: torch.Tensor, n_cols: int) -> torch.Tensor:
-    """Merkle array from (n_cols, 8) leaves: [leaves padded with zero digests
-    to np2] ++ [layer 1] ++ ... ++ [root] (lcpc-2d/src/lib.rs:685-694)."""
-    np2 = next_power_of_two(n_cols)
-    cur = leaves.new_zeros((np2, 8))
-    cur[:n_cols] = leaves
-    layers = [cur]
-    while cur.shape[0] > 1:
-        cur = merkle_parents(cur)
-        layers.append(cur)
-    return torch.cat(layers)
+def merkle_tree_device(n_cols: int, device, write_leaves) -> torch.Tensor:
+    """Merkle array [leaves padded with zero digests to np2] ++ [layer 1] ++
+    ... ++ [root] (lcpc-2d/src/lib.rs:685-694), allocated once on `device`:
+    write_leaves(out) puts the n_cols leaves into its rows [0, n_cols)
+    (hash_columns or merge_cvs with ``out=``), and merkle_tree fills the
+    layers (on CUDA in one or two launches of K2's tree entry)."""
+    hashes = merkle_array(n_cols, device)
+    write_leaves(hashes[:n_cols])
+    return merkle_tree(hashes)
 
 
 def default_device(device=None) -> torch.device:
@@ -248,7 +246,8 @@ def commit(coeffs, enc: LcEncoding, device=None) -> LcCommit:
     device = default_device(device)
     coeff_mat, (n_rows, n_per_row, n_cols) = limb_matrix(coeffs, enc, device)
     comm = enc.encode(coeff_mat)
-    hashes = merkle_tree_device(hash_columns(comm, enc.spec), n_cols)
+    hashes = merkle_tree_device(n_cols, comm.device,
+                                lambda out: hash_columns(comm, enc.spec, out=out))
     return LcCommit(coeffs=coeff_mat, comm=comm, n_rows=n_rows, n_cols=n_cols,
                     n_per_row=n_per_row, hashes=hashes)
 

@@ -220,6 +220,6 @@ def commit_streamed(coeffs, enc: LcEncoding, target_batch_rows: int | None = Non
     if chunk0 != total_chunks:
         raise RuntimeError(f"batches covered {chunk0} chunks of {total_chunks}")
 
-    hashes = merkle_tree_device(merge_cvs(cvs), n_cols)
+    hashes = merkle_tree_device(n_cols, cvs.device, lambda out: merge_cvs(cvs, out=out))
     return LcCommit(coeffs=src, comm=dst, n_rows=n_rows, n_cols=n_cols,
                     n_per_row=n_per_row, hashes=hashes)

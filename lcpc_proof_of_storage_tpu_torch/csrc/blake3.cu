@@ -1,21 +1,34 @@
-// K2: Blake3 column leaves and Merkle parents, and the streamed commit's
-// chunk chaining values, for sm_90a.
+// K2: Blake3 column leaves and the Merkle tree, and the streamed commit's
+// chunk chaining values, for sm_90a.  The shared pieces (compression, the
+// leaf message's loads, the plans) are in blake3.cuh.
 //
 // Replaces: lcpc_proof_of_storage_tpu/ops/blake3_pallas.py, _hash_kernel /
 // _hash_call (driven by hash_columns_pallas and hash_columns_auto), the
-// Merkle layer that ops/blake3_jax.py merkle_parents runs as XLA ops, and
+// Merkle layers that ops/blake3_jax.py merkle_parents runs as XLA ops, and
 // the XLA chunk_cvs_words / merge_chunk_cvs pair of ops/blake3_jax.py that
 // core/streamed.py hashes its row batches with.
 //
-// lcpc_blake3_leaves: one thread per column c of an (n_rows, n_cols, 2W)
-// limb matrix hashes the message 32 zero bytes || repr(M[0, c]) || ... ||
-// repr(M[n_rows-1, c]) (the reference's zero-block leaf prefix,
-// lcpc-2d/src/lib.rs:752-753).  A repr is the element's 4W bytes, little-
-// endian, or big-endian for ft253_192.  The thread walks the message in
-// 1024-byte chunks (chunk counter, CHUNK_START / CHUNK_END per chunk, ROOT
-// only when the message is a single chunk) and merges the chunk chaining
-// values with Blake3's stack of subtree CVs, which is the left-leaning tree
-// the reference builds.
+// lcpc_blake3_leaves: one thread per (column, chunk) of the leaf messages
+// (or per aligned group of chunks past kLeafThreads chunks a message): a
+// block holds `cols` neighbouring columns x their `slots` chunks, keeps the
+// chunk CVs in shared memory and merges each column's CVs there, pairwise
+// with the odd node carried up (blake3.cuh).  Neighbouring threads take
+// neighbouring columns of the same chunk, so a warp's 16-byte loads read
+// neighbouring elements of a row.  At the 2^20 ft255 commit, 128 rows of
+// 32768 columns: five chunks a column, 163840 threads, the longest one 16
+// compressions and then 3 parents.
+//
+// lcpc_blake3_tree: the (2 np2 - 1, 8) Merkle array whose first np2 rows
+// hold the leaves (zero past n_cols) is filled in place, layer k at row
+// tree_layer_row(np2, k).  A parent is blake3(left || right) as a single-
+// chunk 64-byte message with CHUNK_START | CHUNK_END | ROOT, not Blake3's
+// PARENT mode (the reference hashes concatenated digests with a fresh
+// hasher, lib.rs:800-806).  One launch builds up to kTreeLevels layers
+// above layer level0: a block takes 2^levels nodes, builds their subtree's
+// layers in shared memory with one barrier a layer, and writes each layer's
+// slice to its rows.  ops/blake3.py tree_plan launches it once below 2^10
+// leaves and twice up to 2^20, where the second launch's one block builds
+// the layers above the first launch's subtree roots.
 //
 // lcpc_blake3_chunk_cvs: the same chunks, for one row batch of a streamed
 // commit.  A batch's part of each column message (the 32 zero bytes before
@@ -26,128 +39,27 @@
 // ROOT flag, since a streamed column spans at least two chunks.
 //
 // lcpc_blake3_merge_cvs: one thread per column merges all of that column's
-// chunk CVs into its leaf digest with the same subtree stack.
+// chunk CVs into its leaf digest with Blake3's subtree stack.
 //
-// lcpc_blake3_parents: one thread per parent; a parent is blake3(left ||
-// right) as a single-chunk 64-byte message with CHUNK_START | CHUNK_END |
-// ROOT, not Blake3's PARENT mode (the reference hashes concatenated digests
-// with a fresh hasher, lib.rs:800-806).
-//
-// What bounds it on the H100: compression arithmetic.  At the 2^20 ft255
-// commit the leaves are 32768 columns of 5 chunks (80 compressions each),
-// so one thread per column fills only about an eighth of the card's
-// thread slots; splitting each column's chunks over threads is the next
-// step.  The column reads are coalesced: neighbouring threads read
-// neighbouring 64-byte elements of the same row.  Measured on an NVIDIA
-// H100 80GB HBM3 at 700 W: 0.27 ms for those 32768 leaves, 0.25 ms for
-// all 15 Merkle layers above them.  The chunk-CV entry puts neighbouring
-// columns on neighbouring threads too; at the 2^29 ft255 commit a 32-row
-// batch is one chunk of each of 2^20 columns, 2 GiB of int32 limbs read
-// once (0.65 ms at 3.35 TB/s) for 16 compressions a thread: measured 1.16 ms
-// a batch, and 2.48 ms for the merge of 65 chunks of 2^20 columns (bound
-// 1.60 ms, by its compressions).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+// blake3_kernels, PERF.md): the leaves 0.119-0.124 ms at (128, 32768, 16)
+// ft255 (bound 0.080 ms by their bytes; one thread a column took 0.243) and
+// 1.14 ms at the Brakedown 2^25 commit's (143, 357697, 16) (bound 0.98;
+// 1.78 before).  The tree alone 0.026-0.047 ms over 2^15 leaves and 0.088
+// ms over 2^20, two launches each (15 and 20 launches, 0.34-0.48 and
+// 0.57-1.03 ms with the concatenation, before).  The chunk-CV entry 1.16 ms
+// on a 2^29 ft255 batch (32 rows of 2^20 columns, bound 0.65 ms by its
+// bytes) and the merge of 65 chunks of 2^20 columns 2.48 ms (bound 1.60 ms,
+// by its compressions).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "blake3.cuh"
+
 namespace {
 
-__device__ __forceinline__ void load_iv(uint32_t x[8]) {
-    x[0] = 0x6A09E667u; x[1] = 0xBB67AE85u; x[2] = 0x3C6EF372u; x[3] = 0xA54FF53Au;
-    x[4] = 0x510E527Fu; x[5] = 0x9B05688Cu; x[6] = 0x1F83D9ABu; x[7] = 0x5BE0CD19u;
-}
-constexpr uint32_t CHUNK_START = 1, CHUNK_END = 2, PARENT = 4, ROOT = 8;
-constexpr int kMaxDepth = 40;
-
-__device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
-    return (x >> n) | (x << (32 - n));
-}
-
-__device__ __forceinline__ void g(uint32_t v[16], int a, int b, int c, int d, uint32_t mx,
-                                  uint32_t my) {
-    v[a] = v[a] + v[b] + mx;
-    v[d] = rotr(v[d] ^ v[a], 16);
-    v[c] = v[c] + v[d];
-    v[b] = rotr(v[b] ^ v[c], 12);
-    v[a] = v[a] + v[b] + my;
-    v[d] = rotr(v[d] ^ v[a], 8);
-    v[c] = v[c] + v[d];
-    v[b] = rotr(v[b] ^ v[c], 7);
-}
-
-// first 8 output words of the Blake3 compression function
-__device__ __forceinline__ void compress(uint32_t out[8], const uint32_t cv[8],
-                                         const uint32_t block[16], uint64_t counter,
-                                         uint32_t block_len, uint32_t flags) {
-    uint32_t v[16], m[16], iv[8];
-    load_iv(iv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = cv[i];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[8 + i] = iv[i];
-    v[12] = (uint32_t)counter;
-    v[13] = (uint32_t)(counter >> 32);
-    v[14] = block_len;
-    v[15] = flags;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) m[i] = block[i];
-#pragma unroll
-    for (int r = 0; r < 7; ++r) {
-        g(v, 0, 4, 8, 12, m[0], m[1]);
-        g(v, 1, 5, 9, 13, m[2], m[3]);
-        g(v, 2, 6, 10, 14, m[4], m[5]);
-        g(v, 3, 7, 11, 15, m[6], m[7]);
-        g(v, 0, 5, 10, 15, m[8], m[9]);
-        g(v, 1, 6, 11, 12, m[10], m[11]);
-        g(v, 2, 7, 8, 13, m[12], m[13]);
-        g(v, 3, 4, 9, 14, m[14], m[15]);
-        // message permutation {2, 6, 3, 10, 7, 0, 4, 13, 1, 11, 12, 5, 9, 14, 15, 8}
-        uint32_t t[16] = {m[2], m[6], m[3], m[10], m[7], m[0], m[4], m[13],
-                          m[1], m[11], m[12], m[5], m[9], m[14], m[15], m[8]};
-#pragma unroll
-        for (int i = 0; i < 16; ++i) m[i] = t[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = v[i] ^ v[i + 8];
-}
-
-__device__ __forceinline__ void parent_cv(uint32_t out[8], const uint32_t left[8],
-                                          const uint32_t right[8], uint32_t flags) {
-    uint32_t block[16], iv[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        block[i] = left[i];
-        block[8 + i] = right[i];
-    }
-    load_iv(iv);
-    compress(out, iv, block, 0, 64, flags);
-}
-
-// Blake3's stack of subtree CVs over a message's chunk CVs, in order
-struct CvStack {
-    uint32_t s[kMaxDepth][8];
-    int depth = 0;
-
-    // push the CV of chunk number total - 1 (not the last chunk), merging
-    // every subtree it completes
-    __device__ __forceinline__ void push(uint32_t cv[8], uint64_t total) {
-        for (; (total & 1) == 0; total >>= 1) {
-            --depth;
-            parent_cv(cv, s[depth], cv, PARENT);
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) s[depth][i] = cv[i];
-        ++depth;
-    }
-
-    // fold the last chunk's CV into the stack; the final parent is the root
-    __device__ __forceinline__ void finish(uint32_t cv[8]) {
-        while (depth > 0) {
-            --depth;
-            parent_cv(cv, s[depth], cv, PARENT | (depth == 0 ? ROOT : 0));
-        }
-    }
-};
+using namespace b3;
 
 // word g of column c's part of a message: `prefix` zero words, then W repr
 // words per row of the (n_rows, n_cols, 2W) limb matrix, zero past its end
@@ -187,24 +99,81 @@ __device__ __forceinline__ void chunk_cv(uint32_t cv[8], const int32_t* __restri
     }
 }
 
-template <int W>
-__global__ void blake3_leaves(const int32_t* __restrict__ comm, uint32_t* __restrict__ out,
-                              int n_rows, int n_cols, int big_endian) {
-    int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= n_cols) return;
-    const int64_t msg_len = 32 + (int64_t)n_rows * 4 * W;
-    const int64_t nchunks = msg_len > 1024 ? (msg_len + 1023) / 1024 : 1;
-    CvStack stack;
+// blockDim = p.slots * p.cols; thread (slot, col) at slot * p.cols + col
+template <int W, bool GROUPED>
+__global__ void __launch_bounds__(kLeafThreads)
+blake3_leaves(const int32_t* __restrict__ comm, uint32_t* __restrict__ out, int n_rows,
+              int n_cols, int big_endian, LeafPlan p) {
+    __shared__ uint32_t sh[8][kLeafThreads];   // word i of thread t's node at sh[i][t]
+    const int t = threadIdx.x;
+    const int slot = t / p.cols;
+    const int64_t c = (int64_t)blockIdx.x * p.cols + (t - slot * p.cols);
+    const bool live = c < n_cols;
     uint32_t cv[8];
-    for (int64_t ch = 0; ch < nchunks; ++ch) {
-        const int64_t clen = ch == nchunks - 1 ? msg_len - ch * 1024 : 1024;
-        chunk_cv<W>(cv, comm, ch * 256, 8, n_rows, n_cols, c, big_endian != 0, clen,
-                    (uint64_t)ch, nchunks == 1 ? ROOT : 0);
-        if (ch < nchunks - 1) stack.push(cv, (uint64_t)ch + 1);
-    }
-    stack.finish(cv);
+    if (live) leaf_slot_cv<W, GROUPED>(cv, comm, n_rows, n_cols, c, big_endian != 0, p, slot);
+    for (int s = 1; s < p.slots; s *= 2) {
+        if (slot % s == 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) out[c * 8 + i] = cv[i];
+            for (int i = 0; i < 8; ++i) sh[i][t] = cv[i];
+        }
+        __syncthreads();
+        if (live && merges_at(slot, s, p.slots)) {
+            uint32_t right[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) right[i] = sh[i][t + s * p.cols];
+            parent_cv(cv, cv, right, merge_flags(s, p.slots));
+        }
+        __syncthreads();
+    }
+    if (live && slot == 0) {
+        uint4* o = reinterpret_cast<uint4*>(out + c * 8);
+        o[0] = make_uint4(cv[0], cv[1], cv[2], cv[3]);
+        o[1] = make_uint4(cv[4], cv[5], cv[6], cv[7]);
+    }
+}
+
+// block b takes nodes [b 2^levels, (b + 1) 2^levels) of layer level0 and
+// builds `levels` layers above them; blockDim = 2^(levels - 1)
+__global__ void __launch_bounds__(kTreeThreads)
+blake3_tree(uint32_t* __restrict__ nodes, long long np2, int level0, int levels) {
+    __shared__ uint4 buf[2][kTreeThreads][2];   // layer l's nodes in buf[l & 1]
+    const int t = threadIdx.x;
+    for (int l = 1; l <= levels; ++l) {
+        const int n = 1 << (levels - l);          // this block's nodes of layer level0 + l
+        if (t < n) {
+            uint32_t blk[16], h[8];
+            if (l == 1) {
+                const uint4* src = reinterpret_cast<const uint4*>(
+                    nodes + (tree_layer_row(np2, level0) + ((int64_t)blockIdx.x << levels)
+                             + 2 * t) * 8);
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const uint4 v = __ldg(src + q);
+                    blk[4 * q] = v.x; blk[4 * q + 1] = v.y; blk[4 * q + 2] = v.z;
+                    blk[4 * q + 3] = v.w;
+                }
+            } else {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const uint4 v = buf[(l - 1) & 1][2 * t + q / 2][q % 2];
+                    blk[4 * q] = v.x; blk[4 * q + 1] = v.y; blk[4 * q + 2] = v.z;
+                    blk[4 * q + 3] = v.w;
+                }
+            }
+            uint32_t iv[8];
+            load_iv(iv);
+            compress(h, iv, blk, 0, 64, CHUNK_START | CHUNK_END | ROOT);
+            const uint4 lo = make_uint4(h[0], h[1], h[2], h[3]);
+            const uint4 hi = make_uint4(h[4], h[5], h[6], h[7]);
+            uint4* dst = reinterpret_cast<uint4*>(
+                nodes + (tree_layer_row(np2, level0 + l) + (int64_t)blockIdx.x * n + t) * 8);
+            dst[0] = lo;
+            dst[1] = hi;
+            buf[l & 1][t][0] = lo;
+            buf[l & 1][t][1] = hi;
+        }
+        __syncthreads();
+    }
 }
 
 // out: the (n_cols, ld, 8) CV array, advanced to this batch's first chunk
@@ -235,22 +204,9 @@ __global__ void blake3_merge_cvs(const uint32_t* __restrict__ cvs, uint32_t* __r
         for (int i = 0; i < 8; ++i) cv[i] = in[i];
         if (ch < nchunks - 1) stack.push(cv, (uint64_t)ch + 1);
     }
-    stack.finish(cv);
+    stack.finish(cv, ROOT);
 #pragma unroll
     for (int i = 0; i < 8; ++i) out[c * 8 + i] = cv[i];
-}
-
-__global__ void blake3_parents(const uint32_t* __restrict__ nodes, uint32_t* __restrict__ out,
-                               int n_parents) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n_parents) return;
-    uint32_t block[16], h[8], iv[8];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) block[j] = nodes[i * 16 + j];
-    load_iv(iv);
-    compress(h, iv, block, 0, 64, CHUNK_START | CHUNK_END | ROOT);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[i * 8 + j] = h[j];
 }
 
 constexpr int kThreads = 128;
@@ -259,24 +215,51 @@ unsigned blocks_for(int64_t threads) {
     return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
+template <int W>
+void launch_leaves(const int32_t* in, uint32_t* o, int n_rows, int n_cols, int big_endian,
+                   const LeafPlan& p, cudaStream_t st) {
+    const unsigned blocks = (unsigned)((n_cols + p.cols - 1) / p.cols);
+    const unsigned threads = (unsigned)(p.slots * p.cols);
+    if (p.group > 1)
+        blake3_leaves<W, true><<<blocks, threads, 0, st>>>(in, o, n_rows, n_cols, big_endian, p);
+    else
+        blake3_leaves<W, false><<<blocks, threads, 0, st>>>(in, o, n_rows, n_cols, big_endian, p);
+}
+
 }  // namespace
 
 extern "C" {
 
-// comm: (n_rows, n_cols, 2W) int32 limbs; out: (n_cols, 8) words.
+// comm: (n_rows, n_cols, 2W) int32 limbs, 16-byte aligned; out: (n_cols, 8)
+// words, 16-byte aligned.
 int lcpc_blake3_leaves(const void* comm, void* out, int n_rows, int n_cols, int W,
                        int big_endian, void* stream) {
+    if (n_rows < 0 || n_cols < 1 || ((uintptr_t)comm | (uintptr_t)out) % 16)
+        return (int)cudaErrorInvalidValue;
     auto in = static_cast<const int32_t*>(comm);
     auto o = static_cast<uint32_t*>(out);
     auto st = static_cast<cudaStream_t>(stream);
-    unsigned blocks = blocks_for(n_cols);
+    const LeafPlan p = leaf_plan(n_rows, W);
     switch (W) {
-        case 2: blake3_leaves<2><<<blocks, kThreads, 0, st>>>(in, o, n_rows, n_cols, big_endian); break;
-        case 4: blake3_leaves<4><<<blocks, kThreads, 0, st>>>(in, o, n_rows, n_cols, big_endian); break;
-        case 6: blake3_leaves<6><<<blocks, kThreads, 0, st>>>(in, o, n_rows, n_cols, big_endian); break;
-        case 8: blake3_leaves<8><<<blocks, kThreads, 0, st>>>(in, o, n_rows, n_cols, big_endian); break;
+        case 2: launch_leaves<2>(in, o, n_rows, n_cols, big_endian, p, st); break;
+        case 4: launch_leaves<4>(in, o, n_rows, n_cols, big_endian, p, st); break;
+        case 6: launch_leaves<6>(in, o, n_rows, n_cols, big_endian, p, st); break;
+        case 8: launch_leaves<8>(in, o, n_rows, n_cols, big_endian, p, st); break;
         default: return (int)cudaErrorInvalidValue;
     }
+    return (int)cudaGetLastError();
+}
+
+// nodes: the (2 np2 - 1, 8) Merkle array, 16-byte aligned; fills layers
+// level0 + 1 .. level0 + levels from layer level0, 1 <= levels <= kTreeLevels.
+int lcpc_blake3_tree(void* nodes, long long np2, int level0, int levels, void* stream) {
+    if (np2 < 2 || (np2 & (np2 - 1)) || level0 < 0 || levels < 1 || levels > kTreeLevels
+        || level0 + levels > 62 || (np2 >> level0) >> levels < 1
+        || (uintptr_t)nodes % 16)
+        return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)((np2 >> level0) >> levels);
+    blake3_tree<<<blocks, 1u << (levels - 1), 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<uint32_t*>(nodes), np2, level0, levels);
     return (int)cudaGetLastError();
 }
 
@@ -312,13 +295,6 @@ int lcpc_blake3_merge_cvs(const void* cvs, void* out, int n_cols, int nchunks, v
     if (nchunks < 2) return (int)cudaErrorInvalidValue;
     blake3_merge_cvs<<<blocks_for(n_cols), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(cvs), static_cast<uint32_t*>(out), n_cols, nchunks);
-    return (int)cudaGetLastError();
-}
-
-// nodes: (2 n_parents, 8) words; out: (n_parents, 8) words.
-int lcpc_blake3_parents(const void* nodes, void* out, int n_parents, void* stream) {
-    blake3_parents<<<blocks_for(n_parents), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(nodes), static_cast<uint32_t*>(out), n_parents);
     return (int)cudaGetLastError();
 }
 

@@ -130,6 +130,20 @@ class Kernel:
         (self.counts_as or self).launches += 1
 
 
+class TreeKernel(Kernel):
+    """K2's tree entry, which also counts the Merkle arrays its launches
+    built: a launch from layer 0 (its third argument) starts one."""
+
+    def __init__(self, symbol: str, argtypes: list):
+        super().__init__(symbol, argtypes)
+        self.arrays = 0
+
+    def __call__(self, *args) -> None:
+        super().__call__(*args)
+        if args[2] == 0:
+            self.arrays += 1
+
+
 # csrc/ntt.cu: in, out, work, tw, batch, log_n, n_nonzero, W, p_host, stream
 NTT_FORWARD = Kernel("lcpc_ntt_forward", [P, P, P, P, I, I, I, I, P, P])
 # csrc/ntt.cu: in, out, work, tw_inv, batch, log_n, W, p_host, n_inv_mont, stream
@@ -144,8 +158,9 @@ NTT_TILE = Kernel("lcpc_ntt_tile", [P, P, P, P, I, I, I, I, I, I, I, P, P])
 MUL_MOD = Kernel("lcpc_mul_mod", [P, P, P, I, I, I, P, P, P])
 # csrc/blake3.cu: in, out, n_rows, n_cols, W, big_endian, stream
 BLAKE3_LEAVES = Kernel("lcpc_blake3_leaves", [P, P, I, I, I, I, P])
-# csrc/blake3.cu: nodes, out, n_parents, stream
-BLAKE3_PARENTS = Kernel("lcpc_blake3_parents", [P, P, I, P])
+# csrc/blake3.cu: nodes, np2, level0, levels, stream.  One launch: up to 10 Merkle
+# layers; ops/blake3.py merkle_tree makes one or two of them a tree up to 2^20 leaves.
+BLAKE3_TREE = TreeKernel("lcpc_blake3_tree", [P, ctypes.c_longlong, I, I, P])
 # csrc/blake3.cu: batch, cvs, rows_b, n_cols, k, ld, chunk0, first, tail_len, W, big_endian,
 # stream
 BLAKE3_CHUNK_CVS = Kernel("lcpc_blake3_chunk_cvs",
@@ -163,7 +178,7 @@ COLLAPSE_ACC = Kernel("lcpc_collapse", _COLLAPSE_ARGS)
 EXPANDER = Kernel("lcpc_expander_matvec", [P, P, P, P, P, P, I, I, I, I, P, P, I, P])
 
 KERNELS = {"ntt": NTT_FORWARD, "ntt_inverse": NTT_INVERSE, "blake3_leaves": BLAKE3_LEAVES,
-           "blake3_parents": BLAKE3_PARENTS, "blake3_chunk_cvs": BLAKE3_CHUNK_CVS,
+           "blake3_tree": BLAKE3_TREE, "blake3_chunk_cvs": BLAKE3_CHUNK_CVS,
            "blake3_merge_cvs": BLAKE3_MERGE_CVS, "collapse": COLLAPSE,
            "collapse_acc": COLLAPSE_ACC, "expander": EXPANDER, "ntt_tile": NTT_TILE,
            "mul_mod": MUL_MOD}
@@ -172,6 +187,7 @@ KERNELS = {"ntt": NTT_FORWARD, "ntt_inverse": NTT_INVERSE, "blake3_leaves": BLAK
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+    BLAKE3_TREE.arrays = 0
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -1,10 +1,13 @@
-"""Blake3 column leaves, Merkle parents and streamed chunk CVs over limb
+"""Blake3 column leaves, the Merkle tree and streamed chunk CVs over limb
 tensors.
 
 Counterparts of ``lcpc_proof_of_storage_tpu/ops/blake3_jax.py`` (the plain
 versions here) and ``ops/blake3_pallas.py`` (kernel K2, ``csrc/blake3.cu``,
-whose other entry points build the Merkle layers, the chunk chaining values
+whose other entry points build the Merkle tree, the chunk chaining values
 of one row batch of a streamed commit, and the leaves merged from them).
+``hash_columns_chunked_plain`` and ``merkle_tree_tiles_plain`` follow the
+leaves and tree kernels step by step (``leaf_plan``, ``tree_plan``, the
+mirrors of ``csrc/blake3.cuh``) for the tests.
 
 Digests are (n, 8) ``torch.int32`` tensors carrying the bit pattern of the
 reference's uint32 words.  The plain versions compute the 32-bit adds and
@@ -14,6 +17,7 @@ rotates in int64, masked to 32 bits.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,6 +33,8 @@ CHUNK_START = b3.CHUNK_START
 CHUNK_END = b3.CHUNK_END
 PARENT = b3.PARENT
 ROOT = b3.ROOT
+LEAF_THREADS = 256     # threads of a leaves block, at most (csrc/blake3.cuh kLeafThreads)
+TREE_LEVELS = 10       # Merkle layers one tree launch builds (kTreeLevels)
 
 
 def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -173,17 +179,17 @@ def chunk_cvs_words(msg_words: torch.Tensor, counters: torch.Tensor,
     return _compress_chunks(msg_words, counters, _chunk_tables_slice(k, tail_len))
 
 
-def merge_chunk_cvs(cvs: torch.Tensor) -> torch.Tensor:
-    """(batch, k >= 2, 8) chunk CVs -> (batch, 8) digests, merged pairwise
+def merge_chunk_cvs(cvs: torch.Tensor, root: int = ROOT) -> torch.Tensor:
+    """(batch, k >= 1, 8) chunk CVs -> (batch, 8) digests, merged pairwise
     level by level with the odd node carried up (Blake3's left-leaning
-    tree)."""
+    tree); `root` flags the last parent (0 for a subtree's CV)."""
     batch, k, _ = cvs.shape
     nodes = cvs
     iv = torch.tensor(IV, dtype=I64, device=cvs.device)
     while k > 1:
         pairs = k // 2
         blocks = nodes[:, : 2 * pairs].reshape(batch, pairs, 16)
-        f = PARENT | (ROOT if k == 2 else 0)
+        f = PARENT | (root if k == 2 else 0)
         parents = compress8(iv.expand(batch, pairs, 8), blocks, 0, b3.BLOCK_LEN, f)
         if k % 2:
             parents = torch.cat([parents, nodes[:, -1:]], dim=1)
@@ -308,21 +314,154 @@ def merge_cvs_plain(cvs: torch.Tensor) -> torch.Tensor:
     return _to_i32(merge_chunk_cvs(cvs.to(I64) & MASK32))
 
 
-def merge_cvs(cvs: torch.Tensor) -> torch.Tensor:
+def merge_cvs(cvs: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """Leaf digests from all chunk CVs of every column (K2's merge entry on
-    CUDA, :func:`merge_cvs_plain` on CPU)."""
+    CUDA, :func:`merge_cvs_plain` on CPU) into `out` ((n_cols, 8) int32, e.g.
+    the first rows of a Merkle array), or a new tensor."""
     if cvs.dim() != 3 or cvs.shape[1] < 2 or cvs.shape[2] != 8:
         raise ValueError(f"merge_cvs: expected (n_cols, k >= 2, 8), got {tuple(cvs.shape)}")
-    if cvs.device.type == "cpu":
-        return merge_cvs_plain(cvs)
-    kernels.check_cuda("merge_cvs", cvs, torch.int32)
     n_cols, k, _ = cvs.shape
-    out = torch.empty((n_cols, 8), dtype=torch.int32, device=cvs.device)
+    out = _check_out("merge_cvs", out, n_cols, cvs.device)
+    if cvs.device.type == "cpu":
+        return out.copy_(merge_cvs_plain(cvs))
+    kernels.check_cuda("merge_cvs", cvs, torch.int32)
+    kernels.check_cuda("merge_cvs out", out, torch.int32)
     with torch.cuda.device(cvs.device):
         kernels.BLAKE3_MERGE_CVS(kernels.ptr(cvs), kernels.ptr(out), n_cols, k,
                                  kernels.stream_of(cvs))
     return out
 
+
+def _check_out(name: str, out: torch.Tensor | None, n: int, device) -> torch.Tensor:
+    """`out`, or a new (n, 8) int32 tensor on `device`."""
+    if out is None:
+        return torch.empty((n, 8), dtype=torch.int32, device=device)
+    if out.shape != (n, 8) or out.dtype != torch.int32 or out.device != torch.device(device):
+        raise ValueError(f"{name}: out is {tuple(out.shape)} {out.dtype} on {out.device}, "
+                         f"expected ({n}, 8) int32 on {device}")
+    return out
+
+
+def _aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels'
+    vector loads and stores)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: a tensor does not start on a 16-byte boundary")
+
+
+def hash_columns(comm: torch.Tensor, spec: FieldSpec, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """Column leaf digests (K2 on CUDA, :func:`hash_columns_plain` on CPU)
+    into `out` ((n_cols, 8) int32, e.g. the first rows of a Merkle array),
+    or a new tensor."""
+    n_rows, n_cols, L = comm.shape
+    out = _check_out("hash_columns", out, n_cols, comm.device)
+    if comm.device.type == "cpu":
+        return out.copy_(hash_columns_plain(comm, spec))
+    kernels.check_cuda("hash_columns", comm, torch.int32)
+    kernels.check_cuda("hash_columns out", out, torch.int32)
+    if L != spec.num_limbs16 or 2 * L != spec.repr_bytes or L // 2 not in (2, 4, 6, 8):
+        raise ValueError(f"hash_columns kernel: unsupported field {spec.name}")
+    if n_cols == 0:
+        return out
+    _aligned("hash_columns", comm, out)
+    with torch.cuda.device(comm.device):
+        kernels.BLAKE3_LEAVES(kernels.ptr(comm), kernels.ptr(out), n_rows, n_cols, L // 2,
+                              int(spec.endianness == "big"), kernels.stream_of(comm))
+    return out
+
+
+# --------------------------------------------------------------------------
+# the leaves kernel's decomposition, in plain PyTorch
+# --------------------------------------------------------------------------
+
+class LeafPlan(NamedTuple):
+    msg_len: int     # bytes of a column's leaf message
+    nchunks: int
+    group: int       # chunks a thread, a power of two
+    slots: int       # threads a column
+    cols: int        # columns a block, a power of two
+
+
+def leaf_plan(n_rows: int, repr_bytes: int, threads: int = LEAF_THREADS) -> LeafPlan:
+    """csrc/blake3.cuh leaf_plan: one thread per chunk of a column's leaf
+    message, or per aligned group of chunks once a message has more chunks
+    than a block has threads; as many neighbouring columns a block (a power
+    of two) as fill at most `threads` threads."""
+    msg_len = 32 + n_rows * repr_bytes
+    nchunks = max(1, -(-msg_len // b3.CHUNK_LEN))
+    group = 1
+    while -(-nchunks // group) > threads:
+        group *= 2
+    slots = -(-nchunks // group)
+    cols = 1
+    while 2 * cols * slots <= threads:
+        cols *= 2
+    return LeafPlan(msg_len, nchunks, group, slots, cols)
+
+
+def leaf_words_plain(comm: torch.Tensor, spec: FieldSpec, nwords: int) -> torch.Tensor:
+    """Words 0 .. nwords - 1 of every column's leaf message -> (n_cols,
+    nwords) int64, read as csrc/blake3.cuh leaf_block reads them: a 16-word
+    block from its first word g0, the elements from e0 = floor((g0 - 8) / W)
+    on, each whole, two limbs a word, a big-endian repr's bytes reversed;
+    zero before row 0 and past the last row."""
+    n_rows, n_cols, L = comm.shape
+    dev = comm.device
+    if n_rows == 0:
+        return torch.zeros((n_cols, nwords), dtype=I64, device=dev)
+    W = L // 2
+    g = np.arange(nwords)
+    r = g - g % 16 - 8
+    e0 = np.floor_divide(r, W)
+    idx = r - e0 * W + g % 16
+    e, ww = e0 + idx // W, idx % W
+    vw = W - 1 - ww if spec.endianness == "big" else ww
+    valid = torch.from_numpy((e >= 0) & (e < n_rows)).to(dev)
+    rows = torch.from_numpy(np.clip(e, 0, n_rows - 1)).to(dev)
+    at = ((rows[:, None] * n_cols + torch.arange(n_cols, device=dev)[None, :]) * L
+          + torch.from_numpy(2 * vw).to(dev)[:, None])              # (nwords, n_cols)
+    flat = comm.reshape(-1).to(I64)
+    word = (flat[at] & 0xFFFF) | ((flat[at + 1] & 0xFFFF) << 16)
+    if spec.endianness == "big":
+        word = (((word & 0xFF) << 24) | ((word & 0xFF00) << 8) | ((word >> 8) & 0xFF00)
+                | (word >> 24))
+    return torch.where(valid[:, None], word, 0).T
+
+
+def hash_columns_chunked_plain(comm: torch.Tensor, spec: FieldSpec,
+                               threads: int = LEAF_THREADS) -> torch.Tensor:
+    """The leaves kernel's decomposition: column tile by column tile (the
+    plan's `cols` columns a block), every slot's CV (its chunk, the one-chunk
+    message's root, or its group's subtree), then the block's merge at
+    strides 1, 2, 4, ... with ROOT on the last parent -> (n_cols, 8) int32.
+    `threads` below the kernel's makes small messages take the grouped path."""
+    n_rows, n_cols, _ = comm.shape
+    p = leaf_plan(n_rows, spec.repr_bytes, threads)
+    words = leaf_words_plain(comm, spec, p.nchunks * (b3.CHUNK_LEN // 4))
+    counters = torch.arange(p.nchunks, dtype=I64, device=comm.device)
+    tables = _chunk_tables(p.msg_len)
+    iv = torch.tensor(IV, dtype=I64, device=comm.device)
+    out = torch.empty((n_cols, 8), dtype=torch.int32, device=comm.device)
+    for c0 in range(0, n_cols, p.cols):
+        tile = words[c0:c0 + p.cols]
+        cvs = _compress_chunks(tile, counters, tables)            # (cols, nchunks, 8)
+        nodes = torch.stack([merge_chunk_cvs(cvs[:, s * p.group:(s + 1) * p.group], root=0)
+                             for s in range(p.slots)], dim=1)    # (cols, slots, 8)
+        s = 1
+        while s < p.slots:
+            left = torch.arange(0, p.slots - s, 2 * s, device=comm.device)
+            blocks = torch.cat([nodes[:, left], nodes[:, left + s]], dim=2)
+            nodes[:, left] = compress8(iv.expand(*blocks.shape[:2], 8), blocks, 0, b3.BLOCK_LEN,
+                                       PARENT | (ROOT if 2 * s >= p.slots else 0))
+            s *= 2
+        out[c0:c0 + p.cols] = _to_i32(nodes[:, 0])
+    return out
+
+
+# --------------------------------------------------------------------------
+# the Merkle tree
+# --------------------------------------------------------------------------
 
 def merkle_parents_plain(nodes: torch.Tensor) -> torch.Tensor:
     """One Merkle layer: (2k, 8) digests -> (k, 8) parents, each a
@@ -333,36 +472,82 @@ def merkle_parents_plain(nodes: torch.Tensor) -> torch.Tensor:
     return _to_i32(compress8(iv, pairs, 0, 64, CHUNK_START | CHUNK_END | ROOT))
 
 
-def hash_columns(comm: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
-    """Column leaf digests (K2 on CUDA, :func:`hash_columns_plain` on CPU)."""
-    if comm.device.type == "cpu":
-        return hash_columns_plain(comm, spec)
-    n_rows, n_cols, L = comm.shape
-    kernels.check_cuda("hash_columns", comm, torch.int32)
-    if L != spec.num_limbs16 or 2 * L != spec.repr_bytes or L // 2 not in (2, 4, 6, 8):
-        raise ValueError(f"hash_columns kernel: unsupported field {spec.name}")
-    out = torch.empty((n_cols, 8), dtype=torch.int32, device=comm.device)
-    if n_cols == 0:
-        return out
-    with torch.cuda.device(comm.device):
-        kernels.BLAKE3_LEAVES(kernels.ptr(comm), kernels.ptr(out), n_rows, n_cols, L // 2,
-                              int(spec.endianness == "big"), kernels.stream_of(comm))
-    return out
+def tree_layer_row(np2: int, k: int) -> int:
+    """First row of layer k of a Merkle array over np2 leaves
+    (lcpc-2d/src/lib.rs:685-694): the leaves at row 0, then each layer."""
+    return 2 * np2 - 2 * (np2 >> k)
 
 
-def merkle_parents(nodes: torch.Tensor) -> torch.Tensor:
-    """One Merkle layer (K2's parent entry on CUDA, plain on CPU)."""
-    if nodes.device.type == "cpu":
-        return merkle_parents_plain(nodes)
-    kernels.check_cuda("merkle_parents", nodes, torch.int32)
-    if nodes.dim() != 2 or nodes.shape[1] != 8 or nodes.shape[0] % 2:
-        raise ValueError(f"merkle_parents: expected (2k, 8), got {tuple(nodes.shape)}")
-    k = nodes.shape[0] // 2
-    out = torch.empty((k, 8), dtype=torch.int32, device=nodes.device)
-    with torch.cuda.device(nodes.device):
-        kernels.BLAKE3_PARENTS(kernels.ptr(nodes), kernels.ptr(out), k,
-                               kernels.stream_of(nodes))
-    return out
+def tree_plan(np2: int, levels: int = TREE_LEVELS) -> list[tuple[int, int]]:
+    """(level0, levels) of each tree launch: up to `levels` layers above
+    layer level0, a block a subtree of 2^levels nodes; one launch below
+    2^10 leaves, two up to 2^20."""
+    depth = np2.bit_length() - 1
+    return [(k, min(levels, depth - k)) for k in range(0, depth, levels)]
+
+
+def merkle_array(n_cols: int, device) -> torch.Tensor:
+    """A (2 np2 - 1, 8) int32 Merkle array for n_cols leaves, np2 the next
+    power of two: rows [n_cols, np2) zero, the rest for the leaves (rows
+    [0, n_cols)) and for :func:`merkle_tree` to fill."""
+    np2 = 1 << max(n_cols - 1, 0).bit_length()
+    hashes = torch.empty((2 * np2 - 1, 8), dtype=torch.int32, device=device)
+    hashes[n_cols:np2].zero_()
+    return hashes
+
+
+def _merkle_np2(hashes: torch.Tensor) -> int:
+    """np2 of a (2 np2 - 1, 8) Merkle array, np2 a power of two."""
+    np2 = (hashes.shape[0] + 1) // 2 if hashes.dim() == 2 else 0
+    if np2 == 0 or hashes.shape != (2 * np2 - 1, 8) or np2 & (np2 - 1):
+        raise ValueError(f"a Merkle array is (2 np2 - 1, 8), got {tuple(hashes.shape)}")
+    return np2
+
+
+def merkle_tree_plain(hashes: torch.Tensor) -> torch.Tensor:
+    """Fill every layer of a Merkle array from its leaves, layer by layer
+    with :func:`merkle_parents_plain`; returns `hashes`."""
+    np2 = _merkle_np2(hashes)
+    for k in range(np2.bit_length() - 1):
+        lo, mid, hi = tree_layer_row(np2, k), tree_layer_row(np2, k + 1), \
+            tree_layer_row(np2, k + 2)
+        hashes[mid:hi] = merkle_parents_plain(hashes[lo:mid])
+    return hashes
+
+
+def merkle_tree_tiles_plain(hashes: torch.Tensor, levels: int = TREE_LEVELS) -> torch.Tensor:
+    """The tree kernel's decomposition: launch by launch of
+    :func:`tree_plan`, each block's 2^n nodes of layer level0 and the n
+    layers of their subtree, each layer's slice written at its row; returns
+    `hashes`."""
+    np2 = _merkle_np2(hashes)
+    for level0, n in tree_plan(np2, levels):
+        row0 = tree_layer_row(np2, level0)
+        blocks = (np2 >> level0) >> n
+        cur = hashes[row0:row0 + (np2 >> level0)].reshape(blocks, 1 << n, 8)
+        for l in range(1, n + 1):
+            cur = merkle_parents_plain(cur.reshape(-1, 8)).reshape(blocks, 1 << (n - l), 8)
+            # block b's slice starts at row + b 2^(n - l): the slices tile the layer
+            row = tree_layer_row(np2, level0 + l)
+            hashes[row:row + (blocks << (n - l))] = cur.reshape(-1, 8)
+    return hashes
+
+
+def merkle_tree(hashes: torch.Tensor) -> torch.Tensor:
+    """Fill every layer of a Merkle array (rows [0, np2) hold the leaves):
+    K2's tree entry on CUDA, one launch a :func:`tree_plan` step (one below
+    2^10 leaves, two up to 2^20); :func:`merkle_tree_plain` on CPU.  Returns
+    `hashes`."""
+    np2 = _merkle_np2(hashes)
+    if hashes.device.type == "cpu":
+        return merkle_tree_plain(hashes)
+    kernels.check_cuda("merkle_tree", hashes, torch.int32)
+    _aligned("merkle_tree", hashes)
+    with torch.cuda.device(hashes.device):
+        at, stream = kernels.ptr(hashes), kernels.stream_of(hashes)
+        for level0, n in tree_plan(np2):
+            kernels.BLAKE3_TREE(at, np2, level0, n, stream)
+    return hashes
 
 
 def digests_to_bytes(digests) -> list[bytes]:

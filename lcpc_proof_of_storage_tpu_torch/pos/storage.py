@@ -44,7 +44,7 @@ from ..core.commit import default_device
 from ..crypto import blake3_ref as b3
 from ..fields.field import FieldSpec
 from ..ops.blake3 import (batch_chunks, chunk_cvs, digests_to_bytes, hash_columns, merge_cvs,
-                          merkle_parents)
+                          merkle_array, merkle_tree)
 from ..ops.ntt import NttTables, decode_rows, encode_rows
 
 # -- constants (databases/constants.rs:1-5) ---------------------------------
@@ -456,18 +456,17 @@ class MerkleTree:
     @classmethod
     def new(cls, leaves) -> "MerkleTree":
         """leaves: a list of 32-byte digests, or an (n, 8) int32 digest
-        tensor; the layers are built on the tensor's device (K2's parents on
-        CUDA, the plain version on CPU)."""
+        tensor; the layers are built on the tensor's device (K2's tree entry
+        on CUDA, the plain version on CPU)."""
         if not isinstance(leaves, torch.Tensor):
             words = np.frombuffer(b"".join(leaves), "<u4").view(np.int32).reshape(-1, 8)
             leaves = torch.from_numpy(words.copy())
         width = leaves.shape[0]
         if width < 2 or width & (width - 1):
             raise ValueError(f"Merkle tree width must be a power of two >= 2, got {width}")
-        layers = [leaves]
-        while layers[-1].shape[0] > 1:
-            layers.append(merkle_parents(layers[-1]))
-        return cls(digests_to_bytes(torch.cat(layers)), width)
+        hashes = merkle_array(width, leaves.device)
+        hashes[:width] = leaves
+        return cls(digests_to_bytes(merkle_tree(hashes)), width)
 
     def root(self) -> bytes:
         return self.digests[-1]

@@ -12,7 +12,7 @@ from lcpc_proof_of_storage_tpu.fields.field import (FT63, FT127, FT191, FT253_19
 from lcpc_proof_of_storage_tpu.ops import blake3_jax
 from lcpc_proof_of_storage_tpu_torch.ops.blake3 import (bytes_to_digest, digest_to_bytes,
                                                         digests_to_bytes, hash_columns,
-                                                        hash_columns_plain, merkle_parents,
+                                                        hash_columns_plain,
                                                         merkle_parents_plain)
 
 torch.set_num_threads(1)
@@ -54,7 +54,7 @@ def test_merkle_parents_plain_matches_reference():
     rng = np.random.default_rng(5)
     nodes = rng.integers(0, 1 << 32, size=(64, 8), dtype=np.uint64).astype(np.uint32)
     want = np.asarray(blake3_jax.merkle_parents(jnp.asarray(nodes))).view(np.int32)
-    got = merkle_parents(torch.from_numpy(nodes.view(np.int32)))
+    got = merkle_parents_plain(torch.from_numpy(nodes.view(np.int32)))
     np.testing.assert_array_equal(got.numpy(), want)
     left, right = digests_to_bytes(torch.from_numpy(nodes[:2].view(np.int32)))
     assert digest_to_bytes(merkle_parents_plain(torch.from_numpy(nodes[:2].view(np.int32)))[0]) \
