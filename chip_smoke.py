@@ -56,7 +56,9 @@ on a 16 MiB file against the CPU writer's files, and on a 1 GiB file
 memory and host RSS.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and fails if a Merkle array took more than two tree
-launches.  The script prints a JSON line of per-kernel results
+launches.  ntt_tile_kernels, not a phase, times KT and KM at the routes'
+shapes for whichever package is first on sys.path (a parent beside a
+change).  The script prints a JSON line of per-kernel results
 and, last, {"ok": true, "device": {...}}.  Any failure exits non-zero
 without that line, as does a machine with no CUDA device or a directory
 without the port.  It imports nothing of JAX.
@@ -169,13 +171,23 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dit_ops(count: int, s0: int, s1: int, W: int) -> int:
+    """Operations of the radix-2 DIT stages s0 .. s1-1 on `count` values in
+    runs of at least 2^s1: a butterfly is a modular add and subtract (~8 W
+    operations) and, unless its twiddle is 1, one Montgomery product of
+    W-word values (2 W^2 multiply-adds, ~4 W^2 operations).  At stage s one
+    butterfly in 2^s has the twiddle 1: all of stage 0, half of stage 1."""
+    half = count // 2
+    return sum(half * 8 * W + (half - (count >> (s + 1))) * 4 * W * W for s in range(s0, s1))
+
+
 def ntt_bound(batch: int, n: int, L: int, stages: int, scale: bool = False):
-    """K1 / K4 bound: the limbs read once and written once; a radix-2
-    butterfly is one Montgomery product of W-word values (2 W^2
-    multiply-adds) and a modular add and subtract, ~4 W^2 + 8 W operations;
-    the inverse's scale one more product an element."""
-    W = L // 2
-    ops = batch * (n // 2) * stages * (4 * W * W + 8 * W) + (batch * n * 4 * W * W if scale else 0)
+    """K1 / K4 bound: the limbs read once and written once; the last `stages`
+    DIT stages of a 2^log_n transform (dit_ops; the stages pruned by a zero
+    tail are the first ones); the inverse's scale one more product an
+    element."""
+    W, log_n = L // 2, n.bit_length() - 1
+    ops = dit_ops(batch * n, log_n - stages, log_n, W) + (batch * n * 4 * W * W if scale else 0)
     return bound(2 * batch * n * L * 4, ops)
 
 
@@ -441,32 +453,40 @@ def check_expander(res: Results, dev) -> None:
 # the NTT routes: KT (ntt_tile) and KM (mul_mod)
 # --------------------------------------------------------------------------
 
-def tile_bound(count: int, L: int, stages: int, in_limbs: bool, out_limbs: bool,
-               n_diag: int = 0) -> tuple[float, str]:
+def tile_bound(count: int, L: int, s0: int, s1: int, in_limbs: bool, out_limbs: bool,
+               n_diag: int = 0, diag_ones: int = 0) -> tuple[float, str]:
     """KT's bound: its values read once and written once (16-bit limbs as int32
-    or W words each), the diagonal twiddles of one row (n_diag values) read
-    once; a butterfly ~4 W^2 + 8 W operations (ntt_bound), the prologue one
-    Montgomery product (4 W^2) a value."""
+    or W words each), the diagonal twiddles of one row (n_diag values, of
+    which diag_ones are 1) read once; the stages s0 .. s1-1 (dit_ops), the
+    prologue one Montgomery product (4 W^2) a value whose twiddle is not 1."""
     W = L // 2
     nbytes = count * 4 * ((L if in_limbs else W) + (L if out_limbs else W)) + n_diag * W * 4
-    ops = count // 2 * stages * (4 * W * W + 8 * W) + (count * 4 * W * W if n_diag else 0)
+    ops = dit_ops(count, s0, s1, W)
+    if n_diag:
+        ops += (count - count // n_diag * diag_ones) * 4 * W * W
     return bound(nbytes, ops)
 
 
 def mul_mod_bound(n: int, b_rows: int, L: int) -> tuple[float, str]:
-    """KM's bound: a, b and out once; two Montgomery products a value."""
+    """KM's bound: a, b and out once; a Montgomery product (4 W^2 operations)
+    a value by one broadcast row in Montgomery form (and one to form it),
+    two a value otherwise."""
     W = L // 2
-    return bound((2 * n + b_rows) * L * 4, n * 8 * W * W)
+    ops = (n + 1) * 4 * W * W if b_rows == 1 else n * 8 * W * W
+    return bound((2 * n + b_rows) * L * 4, ops)
 
 
 def check_ntt_route_kernels(res: Results, dev) -> None:
     """KT against ntt_tile_stages_plain and KM against mul_mod_plain on five
     fields, bit-exact: KT on every sub-length 2 .. 1024 with and without the
-    four-step's diagonal prologue, limbs or words in and out, and at the
-    fused_small tile (2048) and the largest (4096); KM at a ragged N with
-    b_rows = N, 7 and 1.  Then both routes against K1 at n = 2^11, 2^15
-    (n_nonzero 8192 and 100 <= n1), 2^18 and 2^20 on ft63 and ft255, and the
-    fused_small inverse against K4's inverse at n = 2^4 .. 2^20."""
+    four-step's diagonal prologue, in all four pairings of limbs or words in
+    and out, forward and inverse, from stage 0 and from a later stage; at
+    the fused_small tile (2048) and the largest (4096), forward and inverse;
+    and on counts whose last block holds only part of a block's runs
+    (ops/ntt.py tile_plan); KM at a ragged N with b_rows = N, 7 and 1.  Then
+    both routes against K1 at n = 2^11, 2^15 (n_nonzero 8192 and 100 <= n1),
+    2^18 and 2^20 on ft63 and ft255, and the fused_small inverse against K4's
+    inverse at n = 2^4 .. 2^20."""
     import numpy as np
     import torch
     from lcpc_proof_of_storage_tpu_torch.fields import FT63, FT127, FT191, FT253_192, FT255
@@ -477,48 +497,61 @@ def check_ntt_route_kernels(res: Results, dev) -> None:
     gen.manual_seed(SEED + 5)
     for spec in (FT63, FT127, FT191, FT255, FT253_192):
         L = spec.num_limbs16
+        W = L // 2
         fs = ntt.NttTables(spec, 1 << 11, "four_step").to(dev)
         x = torch.from_numpy(random_limbs(rng, (2, 1 << 11), spec)).to(dev)
         words = ntt.pack_words(x)
         for s1 in range(1, 11):
             for diag in (False, True):
-                got = ntt.ntt_tile_stages(x, fs, 0, s1, diag=diag)
-                res.compare("ntt_tile", f"{spec.name} sub-length {1 << s1} of n=2^11, limbs in "
-                            f"words out, prologue {diag}", got,
-                            ntt.ntt_tile_stages_plain(x, fs, 0, s1, diag), quiet=True)
-                got = ntt.ntt_tile_stages(words, fs, s1 // 2, s1, diag=diag, inverse=True,
-                                          out_limbs=True)
-                res.compare("ntt_tile", f"{spec.name} sub-length {1 << s1}, words in limbs out, "
-                            f"inverse twiddles, prologue {diag}", got,
-                            ntt.ntt_tile_stages_plain(words, fs, s1 // 2, s1, diag, True, True),
-                            quiet=True)
+                for src, out_limbs in ((x, False), (words, True), (x, True), (words, False)):
+                    io = (f"{'limbs' if src is x else 'words'} in "
+                          f"{'limbs' if out_limbs else 'words'} out")
+                    for inverse, s0 in ((False, 0), (True, s1 // 2)):
+                        got = ntt.ntt_tile_stages(src, fs, s0, s1, diag=diag, inverse=inverse,
+                                                  out_limbs=out_limbs)
+                        want = ntt.ntt_tile_stages_plain(src, fs, s0, s1, diag, inverse,
+                                                         out_limbs)
+                        res.compare("ntt_tile", f"{spec.name} sub-length {1 << s1} of n=2^11, "
+                                    f"{io}, stages {s0}.., inverse {inverse}, prologue {diag}",
+                                    got, want, quiet=True)
         fu = ntt.NttTables(spec, 1 << 15, "fused_small").to(dev)
         x = random_limbs_device(gen, (3, 1 << 15), spec, dev)
         for log_t in (11, 12):
-            for s0 in (0, 2):
-                res.compare("ntt_tile", f"{spec.name} tile 2^{log_t} of n=2^15 from stage {s0}",
-                            ntt.ntt_tile_stages(x, fu, s0, log_t),
-                            ntt.ntt_tile_stages_plain(x, fu, s0, log_t), quiet=True)
+            for s0, inverse, out_limbs in ((0, False, False), (2, False, False),
+                                           (0, True, True)):
+                res.compare("ntt_tile", f"{spec.name} tile 2^{log_t} of n=2^15 from stage {s0}, "
+                            f"inverse {inverse}",
+                            ntt.ntt_tile_stages(x, fu, s0, log_t, inverse=inverse,
+                                                out_limbs=out_limbs),
+                            ntt.ntt_tile_stages_plain(x, fu, s0, log_t, False, inverse,
+                                                      out_limbs), quiet=True)
+        partial = []
+        for s1 in (1, 7, 9):    # more blocks than the plan's minimum, and 3 runs over
+            count = ntt.TILE_MIN_BLOCKS << (10 if W <= 4 else 11)
+            count += 3 << s1
+            span = 1 << ntt.tile_plan(count, s1, W)
+            if count % span == 0:
+                raise AssertionError(f"ntt_tile: count {count} fills its last block of {span}")
+            xs = random_limbs_device(gen, (count,), spec, dev)
+            res.compare("ntt_tile", f"{spec.name} {count} values in runs of 2^{s1}, the last "
+                        f"block {count % span} of {span} values",
+                        ntt.ntt_tile_stages(xs, fu, s1 // 2, s1, out_limbs=True),
+                        ntt.ntt_tile_stages_plain(xs, fu, s1 // 2, s1, out_limbs=True),
+                        quiet=True)
+            partial.append(f"{count % span}/{span}")
+            del xs
         say(f"kernel ntt_tile {spec.name}: sub-lengths 2 .. 1024 with and without the prologue, "
-            f"tiles 2048 and 4096: bit-exact against plain")
+            f"limbs or words in and out, forward and inverse; tiles 2048 and 4096; last blocks "
+            f"{', '.join(partial)} full: bit-exact against plain")
         for n, b_rows in ((100_003, 100_003), (100_003, 7), (4099, 1)):
             a = torch.from_numpy(random_limbs(rng, (n,), spec)).to(dev)
             b = torch.from_numpy(random_limbs(rng, (b_rows,), spec)).to(dev)
             res.compare("mul_mod", f"{spec.name} N={n} b_rows={b_rows}", ntt.mul_mod(a, b, spec),
                         ntt.mul_mod_plain(a, b, spec), quiet=True)
-            if b_rows == n:
-                square = a, b
         say(f"kernel mul_mod {spec.name}: N = 100003 (b_rows N and 7) and 4099 (one broadcast "
             f"row): bit-exact against plain")
-        if spec is FT255:   # mul_mod_pallas's own call: a (N, L) x (N, L) product
-            a, b = square
-            n = b_rows = a.shape[0]
-            k = min(event_ms(lambda: ntt.mul_mod(a, b, spec)) for _ in range(2))
-            p_ms = event_ms(lambda: ntt.mul_mod_plain(a, b, spec), 2)
-            bd, by = mul_mod_bound(n, b_rows, L)
-            say(f"time [{card_line()}]: mul_mod ({n}, {L}) x ({b_rows}, {L}) {spec.name} "
-                f"(mul_mod_pallas): kernel {k:.4f} ms, plain {p_ms:.3f} ms, bound {bd:.4f} ms "
-                f"({by})")
+        if spec is FT255:
+            time_mul_mod_rows(res, dev, card_line())
         free_device(dev)
 
     for spec in (FT63, FT255):
@@ -558,6 +591,27 @@ def check_ntt_route_kernels(res: Results, dev) -> None:
             f"2^4 .. 2^20")
 
 
+def time_mul_mod_rows(res: Results, dev, card: str) -> None:
+    """KM at mul_mod_pallas's own call, an (N, L) x (N, L) product (b_rows =
+    N = 100003, ft255), against plain and timed (two CUDA-event means)."""
+    import numpy as np
+    import torch
+    from lcpc_proof_of_storage_tpu_torch.fields import FT255
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+
+    spec, n = FT255, 100_003
+    L = spec.num_limbs16
+    rng = np.random.default_rng(SEED + 6)
+    a, b = (torch.from_numpy(random_limbs(rng, (n,), spec)).to(dev) for _ in range(2))
+    res.compare("mul_mod", f"{spec.name} N={n} b_rows={n}", ntt.mul_mod(a, b, spec),
+                ntt.mul_mod_plain(a, b, spec), quiet=True)
+    k = [event_ms(lambda: ntt.mul_mod(a, b, spec)) for _ in range(2)]
+    p_ms = event_ms(lambda: ntt.mul_mod_plain(a, b, spec), 2)
+    bd, by = mul_mod_bound(n, n, L)
+    say(f"time [{card}]: mul_mod ({n}, {L}) x ({n}, {L}) {spec.name} (mul_mod_pallas): kernel "
+        f"{k[0]:.4f}/{k[1]:.4f} ms, plain {p_ms:.3f} ms, bound {bd:.4f} ms ({by})")
+
+
 def route_call_label(call, L: int) -> str:
     from lcpc_proof_of_storage_tpu_torch.ops import ntt
     if isinstance(call, ntt.MulModCall):
@@ -571,8 +625,13 @@ def route_call_bound(call, L: int) -> tuple[float, str]:
     from lcpc_proof_of_storage_tpu_torch.ops import ntt
     if isinstance(call, ntt.MulModCall):
         return mul_mod_bound(call.a.shape[0], call.b.shape[0], L)
-    return tile_bound(call.x.numel() // call.x.shape[-1], L, call.s1 - call.s0,
-                      call.x.shape[-1] == L, call.out_limbs, call.tables.n if call.diag else 0)
+    ones = 0
+    if call.diag:    # the diagonal twiddles equal to 1 (limbs 1, 0, .., 0)
+        t = call.tables.fs_tw
+        ones = int(((t[:, 0] == 1) & (t[:, 1:] == 0).all(-1)).sum())
+    return tile_bound(call.x.numel() // call.x.shape[-1], L, call.s0, call.s1,
+                      call.x.shape[-1] == L, call.out_limbs, call.tables.n if call.diag else 0,
+                      ones)
 
 
 def time_k1_passes(card: str, spec, x, nnz: int, what: str, tables) -> None:
@@ -637,9 +696,9 @@ def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
             res.compare(name, f"{what} {route} {label}, rows 0..{rows - 1}",
                         call()[:rows * n if is_km else rows], part.plain())
             b, by = route_call_bound(call, L)
-            k = min(event_ms(call) for _ in range(2))
-            say(f"time [{card}]: {name} {what} {route} {label}: kernel {k:.4f} ms, bound "
-                f"{b:.4f} ms ({by})")
+            k = [event_ms(call) for _ in range(2)]
+            say(f"time [{card}]: {name} {what} {route} {label}: kernel {k[0]:.4f}/{k[1]:.4f} ms, "
+                f"bound {b:.4f} ms ({by})")
     routes = {"K1 (stages)": lambda: ntt.ntt(x, spec, nnz, fs),
               "four_step": lambda: ntt.ntt_four_step(x, spec, nnz, fs),
               "fused_small": lambda: ntt.ntt_fused_small(x, spec, nnz, fu)}
@@ -658,12 +717,10 @@ def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
             res.bound[name] = route_call_bound(call, L)
             timed_pair(res, name, call, call.plain,
                        f"{what} {route_call_label(call, L)}", card, plain_runs=1)
-        W = L // 2
         count, s = km.a.shape[0], res.ms["mul_mod"] / 1e3
-        say(f"arithmetic probe [{card}]: KM's {count} values x 2 Montgomery products of "
-            f"W={W} words in {res.ms['mul_mod']:.4f} ms: {2 * count / s / 1e9:.2f} G "
-            f"products/s, {2 * count * 4 * W * W / s / 1e12:.2f} T 32-bit multiply-add "
-            f"halves/s (4 W^2 a product)")
+        say(f"memory probe [{card}]: KM's {count} values ({2 * count * L * 4 / 1e6:.1f} MB of "
+            f"limbs in and out, one Montgomery product a value) in {res.ms['mul_mod']:.4f} ms: "
+            f"{2 * count * L * 4 / s / 1e12:.3f} TB/s")
     inv = {"K4 inverse": lambda: ntt.intt(y, spec, fu),
            "fused_small inverse": lambda: ntt.ntt_fused_small(y, spec, None, fu, inverse=True)}
     t_inv = {name: [event_ms(fn, 5)] for name, fn in inv.items()}
@@ -672,6 +729,57 @@ def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
     say(f"time [{card}]: inverse NTT {what} ({batch}, {n}, {L}) {spec.name}: "
         + ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in t_inv.items())
         + " (in turns)")
+
+
+def ntt_tile_kernels(res: Results, dev, card: str) -> None:
+    """KT and KM at every shape the routes give them, as time_ntt_routes runs
+    them (each call against its plain version, bit-exact, and timed beside
+    its bound; K1, the routes and the inverses in turns): the Ligero 2^20
+    commit's (128, 32768, 16) ft255 input, n_nonzero 8192, every row
+    checked, and a (32, 2^20, 16) batch of the 2^29 commit, n_nonzero 2^18,
+    two rows checked; KM at (100003, 16) x (100003, 16); then one seeded
+    Ligero 2^20 commit on each route (medians of 10), to one root.  Not a
+    phase of main(): the ligero and streamed_host phases time the same calls
+    on their own data.  It uses only the package's public entries, so with
+    an older checkout's package first on sys.path (put there after this
+    script is imported, as chip_smoke imports the package only inside its
+    functions) it times that one, e.g. a `git archive` of the parent commit
+    unpacked into build/parent:
+
+        python3 -c "import sys, torch, chip_smoke as c; sys.path.insert(0, 'build/parent');
+                    c.ntt_tile_kernels(c.Results(), torch.device('cuda', 0), c.card_line())"
+    """
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import LigeroEncoding, commit
+    from lcpc_proof_of_storage_tpu_torch.fields import FT255
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+
+    say(f"ntt_tile_kernels: the package at {Path(ntt.__file__).parents[2]}")
+    spec = FT255
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 28)
+    for shape, nnz, what, rows in (
+            ((128, 1 << 15), 1 << 13, f"the Ligero 2^{LOG2_MAIN} commit's input", None),
+            ((32, 1 << 20), 1 << 18, f"a 2^{ST_LOG2} commit batch", 2)):
+        x = random_limbs_device(gen, shape, spec, dev)
+        x[:, nnz:] = 0
+        time_ntt_routes(res, card, spec, x, nnz, what, check_rows=rows)
+        del x
+        free_device(dev)
+    time_mul_mod_rows(res, dev, card)
+    coeffs = random_limbs_device(gen, (1 << LOG2_MAIN,), spec, dev)
+    roots = set()
+    for route in ntt.ROUTES:
+        enc = LigeroEncoding.new(1 << LOG2_MAIN, spec, rho=(1, 4), ntt=route)
+        roots.add(commit(coeffs, enc, device=dev).get_root().root)
+        t = [cuda_ms(lambda: commit(coeffs, enc, device=dev), runs=10) for _ in range(2)]
+        say(f"time [{card}]: ntt_tile_kernels Ligero 2^{LOG2_MAIN} commit on {route}: "
+            f"{t[0]:.3f}/{t[1]:.3f} ms (medians of 10)")
+        del enc
+        free_device(dev)
+    if len(roots) != 1:
+        raise AssertionError(f"the routes' Ligero 2^{LOG2_MAIN} roots differ")
+    say(f"ntt_tile_kernels: Ligero 2^{LOG2_MAIN} root {roots.pop().hex()} on every route")
 
 
 # --------------------------------------------------------------------------
@@ -2380,12 +2488,26 @@ KERNEL_INFO = {
     "expander": ("lcpc_proof_of_storage_tpu_torch/csrc/expander.cu",
                  "lcpc_proof_of_storage_tpu/ops/expander_pallas.py:388"),
     "ntt_tile": ("lcpc_proof_of_storage_tpu_torch/csrc/ntt_tile.cu",
-                 "lcpc_proof_of_storage_tpu/ops/ntt_pallas2.py:435; "
-                 "lcpc_proof_of_storage_tpu/ops/ntt_pallas.py:308"),
+                 "lcpc_proof_of_storage_tpu/ops/ntt_pallas2.py:435 (K4f); "
+                 "lcpc_proof_of_storage_tpu/ops/ntt_pallas2.py:323 (the four-step's first "
+                 "pass); lcpc_proof_of_storage_tpu/ops/ntt_pallas.py:308 (K6 fused small)"),
     "mul_mod": ("lcpc_proof_of_storage_tpu_torch/csrc/ntt_tile.cu",
-                "lcpc_proof_of_storage_tpu/ops/ntt_pallas.py:476; "
-                "lcpc_proof_of_storage_tpu/ops/ntt_pallas.py:367"),
+                "lcpc_proof_of_storage_tpu/ops/ntt_pallas.py:367 (K6 scale); "
+                "lcpc_proof_of_storage_tpu/ops/ntt_pallas.py:476 (mul_mod_pallas)"),
 }
+
+
+def compare_steps(res: Results, dev, card: str) -> None:
+    """Not a phase of main(): ntt_tile_kernels, then the ligero, brakedown,
+    brakedown_big and streamed_host phases, the steps to time against an
+    older checkout's package in alternating processes (as ntt_tile_kernels
+    says), e.g. parent, change, change, parent, change, parent, parent,
+    change in one chip call; their host-bound steps spread up to 2x between
+    processes."""
+    for step in (ntt_tile_kernels, ligero_path, brakedown_path, brakedown_big, streamed_host):
+        t0 = time.perf_counter()
+        step(res, dev, card)
+        say(f"compare_steps {step.__name__}: {time.perf_counter() - t0:.1f} s")
 
 
 PHASES = (
@@ -2436,8 +2558,8 @@ def main() -> int:
     say(f"build: csrc/*.cu -> {so} in {time.perf_counter() - t0:.1f} s")
     for line in (so.parent / "nvcc.log").read_text().splitlines():
         if ("expander_matvec" in line or "collapse" in line or "ntt_pass" in line
-                or "Used" in line
-                or ("spill" in line and "0 bytes spill stores" not in line)):
+                or "ntt_tile" in line or "mul_mod" in line or "Used" in line
+                or ("spill" in line and ", 0 bytes spill stores" not in line)):
             say(f"build: {line.strip()}")
     t0 = time.perf_counter()
     say(f"host library: {'built' if native.native() is not None else 'NOT built: Python fallbacks'}"

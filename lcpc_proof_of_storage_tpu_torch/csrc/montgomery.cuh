@@ -34,11 +34,10 @@
 //
 // ptxas turns each mad.lo / madc.hi pair into one IMAD.WIDE with carry.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, K1 runs at
-// 3.1x its operations bound at the Ligero 2^20 commit's shape (0.80 ms, from
-// 6.39 ms on 64-bit sums).  KM, two products a value, is no probe of the
-// arithmetic alone: 0.81 ms at (4194304, 16) x (1, 16) on either version,
-// where K1's last pass runs 3.5 products a value over the same 4194304 values
-// in 0.43 ms; KM's 4-byte loads and stores bound it.
+// 3.2x its operations bound at the Ligero 2^20 commit's shape (0.80 ms, from
+// 6.39 ms on 64-bit sums), and KT at 2.3-3.1x its own.  KM is bound by its
+// bytes, not by this arithmetic: one product a value (by b R mod p) at
+// (4194304, 16) x (1, 16) takes 0.25 ms, 2.1 TB/s (ntt_tile.cu).
 //
 // With a host compiler (no __CUDACC__) the cc functions emulate the carry
 // flag, so the same source is checked against Python integers on a CPU
@@ -227,6 +226,17 @@ LCPC_DEV void mont_mul(uint32_t r[W], const uint32_t a[W], const uint32_t b[W],
     const uint32_t below = cc::subc(0u, 0u);
 #pragma unroll
     for (int i = 0; i < W; ++i) r[i] = below ? t[i] : d[i];
+}
+
+// a b mod p for a, b in normal form, given r2 = R^2 mod p (R = 2^(32W)):
+// two products, t = a b R^-1, then t R^2 R^-1.  (KM's broadcast row takes
+// one a value: b R = mont_mul(b, r2) once, then mont_mul(a, b R) = a b.)
+template <int W>
+LCPC_DEV void mul_normal(uint32_t r[W], const uint32_t a[W], const uint32_t b[W],
+                         const uint32_t r2[W], const Mod<W>& m) {
+    uint32_t t[W];
+    mont_mul<W>(t, a, b, m);
+    mont_mul<W>(r, t, r2, m);
 }
 
 // W words passed to a kernel by value

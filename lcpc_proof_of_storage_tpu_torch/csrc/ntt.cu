@@ -40,9 +40,10 @@
 // values i, i + h, i + 2h, i + 3h through two stages in registers (radix 4:
 // half the shared-memory traffic and barriers of one stage at a time, and
 // two independent products in flight), with a __syncthreads() between stage
-// pairs; an odd last stage runs radix 2.  2048 values of W = 8 words take
-// 66 KB, past the 48 KB default: the entry raises the kernel's limit first
-// and returns that call's error.  Occupancy: __launch_bounds__(256, 3) at W
+// pairs; an odd last stage runs radix 2 (the loads and stores and the
+// butterfly are in ntt_pass.cuh, shared with KT).  2048 values of W = 8 words
+// take 66 KB, past the 48 KB default: the entry raises the kernel's limit
+// first and returns that call's error.  Occupancy: __launch_bounds__(256, 3) at W
 // >= 6 holds ptxas to 80 registers at W = 8, so three blocks (24 warps) fit
 // an SM by registers and by shared memory (198 KB of 228); at W <= 4, four.
 //
@@ -59,8 +60,9 @@
 //
 // What bounds it on the H100: the operations.  At the Ligero 2^20 ft255
 // commit, (128, 32768, 16) with n_nonzero 8192, 13 stages of 2^21
-// butterflies at about 4 W^2 + 8 W 32-bit operations each are 8.7 G
-// operations, 0.260 ms at 33.5 T/s; the limbs in and out are 0.54 GB, 0.160
+// butterflies at about 4 W^2 + 8 W 32-bit operations each (8 W where the
+// twiddle is 1, one butterfly in 2^s at stage s) are 8.5 G operations,
+// 0.252 ms at 33.5 T/s; the limbs in and out are 0.54 GB, 0.160
 // ms at 3.35 TB/s (chip_smoke.py ntt_bound).  The two passes move the words
 // twice more, 0.27 GB.  The design before this one launched once a stage,
 // reading and writing the whole word matrix every stage (15 round trips, 4
@@ -72,122 +74,24 @@
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 0.80 ms
 // at that commit's shape (the per-stage design: 6.39 ms), 0.43 ms of it the
 // last pass alone; 7.31 ms on a (32, 2^20, 16) batch of the 2^29 commit
-// (64.4 ms), bound 2.88 ms; K4's inverse 0.89 ms at (128, 32768, 16)
-// (6.44 ms), bound 0.33 ms.  ptxas: 80, 78, 54 and 32 registers at W = 8,
+// (64.4 ms), bound 2.82 ms; K4's inverse 0.89 ms at (128, 32768, 16)
+// (6.44 ms), bound 0.30 ms.  ptxas: 80, 80, 56 and 32 registers at W = 8,
 // 6, 4, 2, and at W = 8 an 8-byte spill under the three-block bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "montgomery.cuh"
+#include "ntt_pass.cuh"
 
 namespace {
+
+using namespace ntt_pass;
 
 constexpr int kThreads = 256;
 constexpr int kMaxStages = 10;   // stages a pass runs: tiles of at most 2^10 values
 constexpr int kMinBlocks = 256;  // halve T while the grid has fewer blocks
 constexpr int kDefaultSmem = 48 * 1024;
-
-// log2 of the values a block holds: 1024 at W <= 4, 2048 at W >= 6
-constexpr int log_block(int W) { return W <= 4 ? 10 : 11; }
-
-// W words of one value from / to global memory, in 16- or 8-byte pieces
-template <int W>
-__device__ __forceinline__ void load_words(uint32_t v[W], const uint32_t* p) {
-    if constexpr (W % 4 == 0) {
-#pragma unroll
-        for (int q = 0; q < W / 4; ++q) {
-            const uint4 t = reinterpret_cast<const uint4*>(p)[q];
-            v[4 * q] = t.x, v[4 * q + 1] = t.y, v[4 * q + 2] = t.z, v[4 * q + 3] = t.w;
-        }
-    } else {
-#pragma unroll
-        for (int q = 0; q < W / 2; ++q) {
-            const uint2 t = reinterpret_cast<const uint2*>(p)[q];
-            v[2 * q] = t.x, v[2 * q + 1] = t.y;
-        }
-    }
-}
-
-template <int W>
-__device__ __forceinline__ void store_words(uint32_t* p, const uint32_t v[W]) {
-    if constexpr (W % 4 == 0) {
-#pragma unroll
-        for (int q = 0; q < W / 4; ++q)
-            reinterpret_cast<uint4*>(p)[q] =
-                make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    } else {
-#pragma unroll
-        for (int q = 0; q < W / 2; ++q)
-            reinterpret_cast<uint2*>(p)[q] = make_uint2(v[2 * q], v[2 * q + 1]);
-    }
-}
-
-// the 2W int32 limbs of one value (W / 2 pieces of 16 bytes) <-> W words
-template <int W>
-__device__ __forceinline__ void load_limbs(uint32_t v[W], const int32_t* p) {
-#pragma unroll
-    for (int q = 0; q < W / 2; ++q) {
-        const int4 t = reinterpret_cast<const int4*>(p)[q];
-        v[2 * q] = ((uint32_t)t.x & 0xFFFFu) | ((uint32_t)t.y << 16);
-        v[2 * q + 1] = ((uint32_t)t.z & 0xFFFFu) | ((uint32_t)t.w << 16);
-    }
-}
-
-template <int W>
-__device__ __forceinline__ void store_limbs(int32_t* p, const uint32_t v[W]) {
-#pragma unroll
-    for (int q = 0; q < W / 2; ++q)
-        reinterpret_cast<int4*>(p)[q] =
-            make_int4((int32_t)(v[2 * q] & 0xFFFFu), (int32_t)(v[2 * q] >> 16),
-                      (int32_t)(v[2 * q + 1] & 0xFFFFu), (int32_t)(v[2 * q + 1] >> 16));
-}
-
-// a value's W words in shared memory, word-major with rows of ld words
-template <int W>
-__device__ __forceinline__ void load_smem(uint32_t v[W], const uint32_t* sm, int ld, int i) {
-#pragma unroll
-    for (int w = 0; w < W; ++w) v[w] = sm[w * ld + i];
-}
-
-template <int W>
-__device__ __forceinline__ void store_smem(uint32_t* sm, int ld, int i, const uint32_t v[W]) {
-#pragma unroll
-    for (int w = 0; w < W; ++w) sm[w * ld + i] = v[w];
-}
-
-// twiddle j of the (n/2, W) table, through the read-only path
-template <int W>
-__device__ __forceinline__ void load_tw(uint32_t v[W], const uint32_t* __restrict__ tw,
-                                        int64_t j) {
-    if constexpr (W % 4 == 0) {
-        const uint4* p = reinterpret_cast<const uint4*>(tw + j * W);
-#pragma unroll
-        for (int q = 0; q < W / 4; ++q) {
-            const uint4 t = __ldg(p + q);
-            v[4 * q] = t.x, v[4 * q + 1] = t.y, v[4 * q + 2] = t.z, v[4 * q + 3] = t.w;
-        }
-    } else {
-        const uint2* p = reinterpret_cast<const uint2*>(tw + j * W);
-#pragma unroll
-        for (int q = 0; q < W / 2; ++q) {
-            const uint2 t = __ldg(p + q);
-            v[2 * q] = t.x, v[2 * q + 1] = t.y;
-        }
-    }
-}
-
-// (a, b) <- (a + b w, a - b w), w a twiddle in Montgomery form
-template <int W>
-__device__ __forceinline__ void butterfly(uint32_t a[W], uint32_t b[W], const uint32_t w[W],
-                                          const Mod<W>& m) {
-    uint32_t y[W], s[W];
-    mont_mul<W>(y, b, w, m);
-    add_mod<W>(s, a, y, m);
-    sub_mod<W>(b, a, y, m);
-#pragma unroll
-    for (int i = 0; i < W; ++i) a[i] = s[i];
-}
 
 struct Pass {
     const void* in;       // limbs of the natural-order rows (in_limbs), else words

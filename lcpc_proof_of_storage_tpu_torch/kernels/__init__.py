@@ -151,9 +151,9 @@ NTT_INVERSE = Kernel("lcpc_ntt_inverse", [P, P, P, P, I, I, I, P, P, P])
 # csrc/ntt.cu: work, out, tw, batch, log_n, s0, W, p_host, stream.  K1's own passes
 # from stage s0 on, unpacking in the last, for the fused_small route: counted as K1.
 NTT_STAGES = Kernel("lcpc_ntt_stages", [P, P, P, I, I, I, I, P, P], counts_as=NTT_FORWARD)
-# csrc/ntt_tile.cu: in, out, tw, diag, count, log_n, s0, s1, in_limbs, out_limbs, W, p_host,
-# stream
-NTT_TILE = Kernel("lcpc_ntt_tile", [P, P, P, P, I, I, I, I, I, I, I, P, P])
+# csrc/ntt_tile.cu: in, out, tw, diag, count, log_n, s0, s1, log_span (ops/ntt.py tile_plan),
+# in_limbs, out_limbs, W, p_host, stream
+NTT_TILE = Kernel("lcpc_ntt_tile", [P, P, P, P, I, I, I, I, I, I, I, I, P, P])
 # csrc/ntt_tile.cu: a, b, out, n, b_rows, W, p_host, r2_host, stream
 MUL_MOD = Kernel("lcpc_mul_mod", [P, P, P, I, I, I, P, P, P])
 # csrc/blake3.cu: in, out, n_rows, n_cols, W, big_endian, stream

@@ -463,6 +463,15 @@ def _limbs64(x: torch.Tensor, L: int) -> torch.Tensor:
     raise ValueError(f"expected (..., {L}) limbs or (..., {L // 2}) words, got {tuple(x.shape)}")
 
 
+def _check_aligned(what: str, *ts: torch.Tensor) -> None:
+    """KT and KM move values in 16-byte pieces: raise on a tensor that does
+    not start on a 16-byte boundary (a view at an odd offset)."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel: a tensor at {t.data_ptr():#x} is not 16-byte "
+                             f"aligned")
+
+
 def _check_tile_args(x: torch.Tensor, tables: NttTables, s0: int, s1: int, diag: bool) -> int:
     """The number of values in x; raises on stages or shapes KT does not take."""
     L = tables.spec.num_limbs16
@@ -476,6 +485,21 @@ def _check_tile_args(x: torch.Tensor, tables: NttTables, s0: int, s1: int, diag:
     if diag and (not hasattr(tables, "fs_tw") or count % tables.n):
         raise ValueError("ntt_tile: the twiddle prologue needs four_step tables and whole rows")
     return count
+
+
+TILE_MIN_BLOCKS = 256   # KT holds fewer runs a block while its grid has fewer blocks
+
+
+def tile_plan(count: int, s1: int, W: int) -> int:
+    """log2 of the values one block of KT holds, passed to the kernel as its
+    log_span: whole runs of 2^s1, as many as K1's blocks hold (2^11 values at
+    W >= 6, 2^10 at W <= 4; one run if it is longer), and half as many while
+    the grid of ceil(count / 2^log_span) blocks would have fewer than
+    :data:`TILE_MIN_BLOCKS`."""
+    log_span = max(s1, 10 if W <= 4 else 11)
+    while log_span > s1 and (count + (1 << log_span) - 1) >> log_span < TILE_MIN_BLOCKS:
+        log_span -= 1
+    return log_span
 
 
 def ntt_tile_stages_plain(x: torch.Tensor, tables: NttTables, s0: int, s1: int,
@@ -511,14 +535,16 @@ def _ntt_tile_cuda(x: torch.Tensor, tables: NttTables, s0: int, s1: int, diag: b
         raise ValueError(f"ntt_tile kernel: unsupported shape {tuple(x.shape)}")
     if tables.device != x.device:
         raise ValueError(f"ntt_tile: tables on {tables.device}, input on {x.device}")
+    _check_aligned("ntt_tile", x)
     out = torch.empty((*x.shape[:-1], L if out_limbs else W), dtype=torch.int32,
                       device=x.device)
     tw = tables.tw_inv_mont if inverse else tables.tw_mont
     with torch.cuda.device(x.device):
         kernels.NTT_TILE(kernels.ptr(x), kernels.ptr(out), kernels.ptr(tw),
                          kernels.ptr(tables.fs_tw_mont) if diag else None, count,
-                         tables.n.bit_length() - 1, s0, s1, int(x.shape[-1] == L),
-                         int(out_limbs), W, kernels.ptr(tables.p_words), kernels.stream_of(x))
+                         tables.n.bit_length() - 1, s0, s1, tile_plan(count, s1, W),
+                         int(x.shape[-1] == L), int(out_limbs), W, kernels.ptr(tables.p_words),
+                         kernels.stream_of(x))
     return out
 
 
@@ -606,6 +632,7 @@ def mul_mod(a: torch.Tensor, b: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     out = torch.empty_like(a)
     if not a.shape[0]:
         return out
+    _check_aligned("mul_mod", a, b)
     p_words, r2_words = _mul_mod_consts(spec)
     with torch.cuda.device(a.device):
         kernels.MUL_MOD(kernels.ptr(a), kernels.ptr(b), kernels.ptr(out), a.shape[0],

@@ -17,7 +17,21 @@ modular product KM (plain versions on the CPU), against the JAX package.
 
 All comparisons are exact: integer field arithmetic, no tolerance.  Inputs
 are drawn with numpy from fixed seeds.
+
+The JAX package's outputs (its Pallas kernels in interpret mode, its XLA
+ops, its Ligero commit and proof) are computed by the ``jax_refs`` fixture
+in three worker processes while the port's side of the tests runs: JAX's
+tracing holds the GIL, so threads would not overlap it, and one process
+takes about twice as long.  Each JAX case sees the same inputs as the port
+side; the tests that need a JAX output come last in the file.  The workers
+compile with XLA's ``--xla_backend_optimization_level=0``, which only
+shortens compiles: every output compared is exact integer arithmetic or
+hashing, and does not depend on how XLA optimised the program that
+produced it.
 """
+
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -25,7 +39,6 @@ import torch
 
 import lcpc_proof_of_storage_tpu.ops.ntt_pallas as jax_v1
 import lcpc_proof_of_storage_tpu.ops.ntt_pallas2 as jax_v2
-from jax.experimental import pallas as pl
 from lcpc_proof_of_storage_tpu.codes.ligero import LigeroEncoding as JaxLigero
 from lcpc_proof_of_storage_tpu.core import commit as jax_core
 from lcpc_proof_of_storage_tpu.crypto.transcript import Transcript as JaxTranscript
@@ -45,27 +58,6 @@ torch.set_num_threads(1)
 
 JAX_SPECS = {"ft63": jax_field.FT63, "ft255": jax_field.FT255}
 FIELDS = [FT63, FT127, FT191, FT255, FT253_192]
-
-
-@pytest.fixture(scope="module")
-def interpret_pallas():
-    """Every pl.pallas_call in interpret mode, for this module's tests, with
-    the JAX package's cached kernel closures dropped before and after."""
-    caches = (jax_v1._fused_small_call, jax_v1._stage_call, jax_v1._scale_call,
-              jax_v2._in_tile_call, jax_v2._in_tile_call_mul)
-    orig = pl.pallas_call
-
-    def interp(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pl, "pallas_call", interp)
-        for c in caches:
-            c.cache_clear()
-        yield
-        for c in caches:
-            c.cache_clear()
 
 
 def _limbs(spec, shape, seed, n_nonzero=None):
@@ -93,58 +85,120 @@ def _same(got: torch.Tensor, want) -> bool:
     return np.array_equal(got.numpy().astype(np.int64), np.asarray(want).astype(np.int64))
 
 
-# -- the routes against the JAX package's kernels -------------------------------
+# -- the JAX package's outputs, from worker processes ------------------------------
 
-@pytest.mark.parametrize("n,n_nonzeros", [(2048, (None,)), (8192, (2048, 50))],
-                         ids=["2048", "8192-pruned"])
-def test_four_step_matches_jax_four_step(interpret_pallas, n, n_nonzeros):
-    """At n = 8192, n_nonzero = 2048 prunes two of pass A's stages and
-    n_nonzero = 50 <= n1 = 64 leaves pass A with none."""
-    for n_nonzero in n_nonzeros:
-        x = _limbs(FT63, (2, n), seed=n + (n_nonzero or 0), n_nonzero=n_nonzero)
-        want = jax_v2.ntt_four_step(_jax(x), jax_field.FT63, n_nonzero=n_nonzero)
-        assert _same(ntt.ntt_four_step(_port(x), FT63, n_nonzero), want)
+X = 987654321
+FOUR_STEP_CASES = {2048: (None,), 8192: (2048, 50)}
 
 
-def test_four_step_ft255_matches_jax_ntt():
-    x = _limbs(FT255, (2, 2048), seed=5, n_nonzero=600)
-    want = jax_ntt.ntt(_jax(x), jax_field.FT255)
-    assert _same(ntt.ntt_four_step(_port(x), FT255, 600), want)
+def _four_step_input(n, n_nonzero):
+    return _limbs(FT63, (2, n), seed=n + (n_nonzero or 0), n_nonzero=n_nonzero)
 
 
-@pytest.mark.parametrize("n_nonzero", [100], ids=["pruned"])
-def test_fused_small_matches_jax_ntt_pallas(interpret_pallas, n_nonzero):
-    """A tile of 32 leaves the stages with half 32 .. 128 to K1's launches.
-    The unpruned forward route is held to K1's plain version (itself held to
-    the JAX package's) in test_routes_match_k1_plain."""
-    x = _limbs(FT63, (2, 256), seed=7, n_nonzero=n_nonzero)
-    want = jax_v1.ntt_pallas(_jax(x), jax_field.FT63, n_nonzero=n_nonzero)
-    assert _same(ntt.ntt_fused_small(_port(x), FT63, n_nonzero, tile=32), want)
+def _ligero_coeffs(spec):
+    rng = np.random.default_rng(20261017)
+    return [int(v) % spec.modulus for v in rng.integers(0, 1 << 63, size=3000)]
 
 
-def test_fused_small_inverse_matches_jax_ntt_pallas(interpret_pallas):
-    x = _limbs(FT63, (2, 256), seed=8)
-    want = jax_v1.ntt_pallas(_jax(x), jax_field.FT63, inverse=True)
-    assert _same(ntt.ntt_fused_small(_port(x), FT63, inverse=True, tile=64), want)
-    assert _same(ntt.ntt_fused_small(_port(x), FT63, inverse=True), want)
+def _tr(root, cls=Transcript):
+    tr = cls(b"ntt-routes")
+    tr.append_message(b"polycommit", root)
+    return tr
 
 
-def test_mul_mod_matches_mul_mod_pallas(interpret_pallas):
-    a, b = _limbs(FT63, (1024,), seed=9), _limbs(FT63, (1024,), seed=10)
-    want = jax_v1.mul_mod_pallas(_jax(a), _jax(b), jax_field.FT63)
-    assert _same(ntt.mul_mod(_port(a), _port(b), FT63), want)
+def _ligero_points(n_rows, n_per_row, p):
+    xr = pow(X, n_per_row, p)
+    return [pow(xr, i, p) for i in range(n_rows)], [pow(X, j, p) for j in range(n_per_row)]
 
 
-@pytest.mark.parametrize("name", ["ft63", "ft255"])
-def test_mul_mod_ragged_matches_jax_limb_mul(name):
-    spec = FT63 if name == "ft63" else FT255
-    jspec = JAX_SPECS[name]
-    a, b = _limbs(spec, (1001,), seed=11), _limbs(spec, (1001,), seed=12)
-    b_rows = (1001, 7, 1)
-    idx = np.concatenate([np.arange(1001) % r for r in b_rows])
-    want = np.asarray(jax_limb_field(jspec).mul(_jax(np.tile(a, (3, 1))), _jax(b[idx])))
-    for i, r in enumerate(b_rows):
-        assert _same(ntt.mul_mod(_port(a), _port(b[:r]), spec), want[1001 * i:1001 * (i + 1)])
+def _mul_mod_inputs(spec):
+    return _limbs(spec, (1001,), seed=11), _limbs(spec, (1001,), seed=12)
+
+
+# each job: the JAX function and its inputs, longest first (the pool takes them in order)
+REF_JOBS = {
+    "ligero": ("ligero",),
+    "four_step 2048": ("four_step", [_four_step_input(2048, z) for z in FOUR_STEP_CASES[2048]],
+                       FOUR_STEP_CASES[2048]),
+    "four_step 8192": ("four_step", [_four_step_input(8192, z) for z in FOUR_STEP_CASES[8192]],
+                       FOUR_STEP_CASES[8192]),
+    "ntt_pallas inverse": ("ntt_pallas", _limbs(FT63, (2, 256), seed=8), None),
+    "ntt_pallas pruned": ("ntt_pallas", _limbs(FT63, (2, 256), seed=7, n_nonzero=100), 100),
+    "ntt ft255": ("ntt", _limbs(FT255, (2, 2048), seed=5, n_nonzero=600)),
+    "limb mul ft63": ("limb_mul", "ft63", *_mul_mod_inputs(FT63)),
+    "limb mul ft255": ("limb_mul", "ft255", *_mul_mod_inputs(FT255)),
+    "mul_mod_pallas": ("mul_mod_pallas", _limbs(FT63, (1024,), seed=9),
+                       _limbs(FT63, (1024,), seed=10)),
+}
+JAX_CONFIG = ("jax_platforms", "jax_compilation_cache_dir",
+              "jax_persistent_cache_min_compile_time_secs",
+              "jax_persistent_cache_min_entry_size_bytes",
+              "jax_persistent_cache_enable_xla_caches")
+
+
+def _init_worker(config):
+    """A worker's JAX as the parent's (CPU, the same compile cache), XLA's
+    backend optimisation off (it halves the Ligero commit's compile; integer
+    results do not depend on it), and every pl.pallas_call in interpret
+    mode."""
+    import os
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_backend_optimization_level=0").strip()
+    import jax
+    from jax.experimental import pallas as pl
+    for name, value in config.items():
+        jax.config.update(name, value)
+    orig = pl.pallas_call
+
+    def interp(*args, **kw):
+        kw["interpret"] = True
+        return orig(*args, **kw)
+
+    pl.pallas_call = interp
+
+
+def _jax_reference(job, *args):
+    """One REF_JOBS entry's JAX output, as numpy (or, for the Ligero case,
+    the commitment, its root and the proof's bytes)."""
+    if job == "four_step":
+        xs, n_nonzeros = args
+        return [np.asarray(jax_v2.ntt_four_step(_jax(x), jax_field.FT63, n_nonzero=z))
+                for x, z in zip(xs, n_nonzeros)]
+    if job == "ntt_pallas":
+        x, n_nonzero = args
+        if n_nonzero is None:
+            return np.asarray(jax_v1.ntt_pallas(_jax(x), jax_field.FT63, inverse=True))
+        return np.asarray(jax_v1.ntt_pallas(_jax(x), jax_field.FT63, n_nonzero=n_nonzero))
+    if job == "ntt":
+        return np.asarray(jax_ntt.ntt(_jax(args[0]), jax_field.FT255))
+    if job == "limb_mul":
+        name, a, b = args
+        idx = np.concatenate([np.arange(1001) % r for r in (1001, 7, 1)])
+        return np.asarray(jax_limb_field(JAX_SPECS[name]).mul(_jax(np.tile(a, (3, 1))),
+                                                               _jax(b[idx])))
+    if job == "mul_mod_pallas":
+        a, b = args
+        return np.asarray(jax_v1.mul_mod_pallas(_jax(a), _jax(b), jax_field.FT63))
+    assert job == "ligero"
+    jspec = jax_field.FT63
+    jenc = JaxLigero.new_from_dims(1024, 4096, jspec)
+    jcomm = jax_core.commit(_ligero_coeffs(jspec), jenc)
+    root = jcomm.get_root().root
+    outer, _ = _ligero_points(jcomm.n_rows, jcomm.n_per_row, jspec.modulus)
+    jblob = jax_serde.serialize_proof(
+        jax_core.prove(jcomm, outer, jenc, _tr(root, JaxTranscript)), jspec)
+    return jcomm, root, jblob
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_refs():
+    """REF_JOBS' outputs as futures, computed in three spawned worker
+    processes from the start of the module."""
+    import jax
+    config = {name: getattr(jax.config, name) for name in JAX_CONFIG}
+    with ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_init_worker, initargs=(config,)) as pool:
+        yield {key: pool.submit(_jax_reference, *job) for key, job in REF_JOBS.items()}
 
 
 # -- the routes against the port's own plain K1 and K4 --------------------------
@@ -261,33 +315,67 @@ def test_four_step_below_its_window_is_k1(monkeypatch):
     assert calls == ["ntt_plain"]
 
 
+# -- the routes against the JAX package's kernels -------------------------------
+
+@pytest.mark.parametrize("n,n_nonzeros", [(2048, (None,)), (8192, (2048, 50))],
+                         ids=["2048", "8192-pruned"])
+def test_four_step_matches_jax_four_step(jax_refs, n, n_nonzeros):
+    """At n = 8192, n_nonzero = 2048 prunes two of pass A's stages and
+    n_nonzero = 50 <= n1 = 64 leaves pass A with none."""
+    assert n_nonzeros == FOUR_STEP_CASES[n]
+    _, xs, _ = REF_JOBS[f"four_step {n}"]
+    for n_nonzero, x, want in zip(n_nonzeros, xs, jax_refs[f"four_step {n}"].result()):
+        assert _same(ntt.ntt_four_step(_port(x), FT63, n_nonzero), want)
+
+
+def test_four_step_ft255_matches_jax_ntt(jax_refs):
+    x = REF_JOBS["ntt ft255"][1]
+    assert _same(ntt.ntt_four_step(_port(x), FT255, 600), jax_refs["ntt ft255"].result())
+
+
+@pytest.mark.parametrize("n_nonzero", [100], ids=["pruned"])
+def test_fused_small_matches_jax_ntt_pallas(jax_refs, n_nonzero):
+    """A tile of 32 leaves the stages with half 32 .. 128 to K1's launches.
+    The unpruned forward route is held to K1's plain version (itself held to
+    the JAX package's) in test_routes_match_k1_plain."""
+    _, x, ref_n_nonzero = REF_JOBS["ntt_pallas pruned"]
+    assert ref_n_nonzero == n_nonzero
+    want = jax_refs["ntt_pallas pruned"].result()
+    assert _same(ntt.ntt_fused_small(_port(x), FT63, n_nonzero, tile=32), want)
+
+
+def test_fused_small_inverse_matches_jax_ntt_pallas(jax_refs):
+    x = REF_JOBS["ntt_pallas inverse"][1]
+    want = jax_refs["ntt_pallas inverse"].result()
+    assert _same(ntt.ntt_fused_small(_port(x), FT63, inverse=True, tile=64), want)
+    assert _same(ntt.ntt_fused_small(_port(x), FT63, inverse=True), want)
+
+
+def test_mul_mod_matches_mul_mod_pallas(jax_refs):
+    _, a, b = REF_JOBS["mul_mod_pallas"]
+    assert _same(ntt.mul_mod(_port(a), _port(b), FT63), jax_refs["mul_mod_pallas"].result())
+
+
+@pytest.mark.parametrize("name", ["ft63", "ft255"])
+def test_mul_mod_ragged_matches_jax_limb_mul(jax_refs, name):
+    spec = FT63 if name == "ft63" else FT255
+    _, _, a, b = REF_JOBS[f"limb mul {name}"]
+    want = jax_refs[f"limb mul {name}"].result()
+    for i, r in enumerate((1001, 7, 1)):
+        assert _same(ntt.mul_mod(_port(a), _port(b[:r]), spec), want[1001 * i:1001 * (i + 1)])
+
+
 # -- Ligero commit -> prove -> verify on each route ----------------------------
 
-X = 987654321
-
-
-def _tr(root, cls=Transcript):
-    tr = cls(b"ntt-routes")
-    tr.append_message(b"polycommit", root)
-    return tr
-
-
 @pytest.fixture(scope="module")
-def ligero_case():
+def ligero_case(jax_refs):
     """One seeded ft63 input at n_cols = 4096 (rho = 1/4), committed and
     proved by the JAX package."""
-    spec, jspec = FT63, jax_field.FT63
-    rng = np.random.default_rng(20261017)
-    coeffs = [int(v) % spec.modulus for v in rng.integers(0, 1 << 63, size=3000)]
-    jenc = JaxLigero.new_from_dims(1024, 4096, jspec)
-    jcomm = jax_core.commit(coeffs, jenc)
-    root = jcomm.get_root().root
+    spec = FT63
+    coeffs = _ligero_coeffs(spec)
+    jcomm, root, jblob = jax_refs["ligero"].result()
     p = spec.modulus
-    xr = pow(X, jcomm.n_per_row, p)
-    outer = [pow(xr, i, p) for i in range(jcomm.n_rows)]
-    inner = [pow(X, j, p) for j in range(jcomm.n_per_row)]
-    jblob = jax_serde.serialize_proof(
-        jax_core.prove(jcomm, outer, jenc, _tr(root, JaxTranscript)), jspec)
+    outer, inner = _ligero_points(jcomm.n_rows, jcomm.n_per_row, p)
     value = sum(c * pow(X, i, p) for i, c in enumerate(coeffs)) % p
     return dict(spec=spec, coeffs=coeffs, jcomm=jcomm, root=root, outer=outer, inner=inner,
                 jblob=jblob, value=value)
