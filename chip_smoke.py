@@ -52,8 +52,16 @@ and K1 at the PoS sizes; the
 proof-of-storage lifecycle (an in-process server and client on the card)
 on a 16 MiB file against the CPU writer's files, and on a 1 GiB file
 (chunked upload, proof, evaluation, row, edit, append, a corrupted
-.porenc) with a 256 MiB whole upload and download; timings, peak device
-memory and host RSS.
+.porenc) with a 256 MiB whole upload and download; the generic host
+digest (phase digest: commit, prove and verify with Blake2b at Ligero
+2^20 and Brakedown 2^21, the root against hashlib.blake2b over the Blake3
+commit's encoded matrix, the host legs timed); the multi-device paths
+(phase mesh: legs a-g of __graft_entry__.dryrun_multichip at those two
+full-width points on meshes of 3, 4 and 8 shards on one card, plus one
+shard a card where there are several: roots and proof bytes against the
+one-device path's, each kernel a shard launches held against its plain
+version on that shard's inputs, launches per leg); timings, peak device
+memory and host RSS.  ``--phases digest,mesh`` runs only the phases named.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and fails if a Merkle array took more than two tree
 launches.  ntt_tile_kernels, not a phase, times KT and KM at the routes'
@@ -2468,6 +2476,351 @@ def pos_upload_legs(src, meta, enc_path, dev, card: str, upload_s: float) -> Non
         f"take the rest of the chunked upload's {upload_s:.3f} s")
 
 
+# --------------------------------------------------------------------------
+# generic host digests and the multi-device paths
+# --------------------------------------------------------------------------
+
+MESH_SIZES = (3, 4, 8)    # shards on one card; leg (a) at all, the wide legs at powers of two
+
+
+def wall_ms(fn) -> float:
+    """Host-clock milliseconds of one synchronised call of fn()."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+_POINTS = {}
+
+
+def full_width_point(name: str, dev):
+    """(encoding, coefficients on the card, their ints) of a full-width
+    point: "ligero" (rho=1/4 ft255 2^20, dims (128, 8192, 32768)) or
+    "brakedown" (SdigCode3 ft255 seed 0 2^21, dims BD_DIMS); built once for
+    the digest and mesh phases."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import BrakedownEncoding, LigeroEncoding
+    from lcpc_proof_of_storage_tpu_torch.fields import FT255, limbs_to_ints
+    if name not in _POINTS:
+        import numpy as np
+        if name == "ligero":
+            length = 1 << LOG2_MAIN
+            enc = LigeroEncoding.new(length, FT255, rho=(1, 4))
+            if enc.get_dims(length) != (128, 8192, 32768):
+                raise AssertionError(f"Ligero 2^{LOG2_MAIN} dims {enc.get_dims(length)}")
+        else:
+            length = 1 << BD_LOG2
+            enc = BrakedownEncoding.new(length, seed=0, field=FT255)
+            if enc.get_dims(length) != BD_DIMS:
+                raise AssertionError(f"Brakedown 2^{BD_LOG2} dims {enc.get_dims(length)}")
+        coeffs_np = random_limbs(np.random.default_rng(SEED + 50 + len(name)), (length,), FT255)
+        _POINTS[name] = (enc, torch.from_numpy(coeffs_np).to(dev), limbs_to_ints(coeffs_np))
+    return _POINTS[name]
+
+
+def blake2b_root_plain(comm, spec) -> bytes:
+    """Merkle root of an encoded matrix with hashlib.blake2b leaves
+    H(0^32 || column reprs) and layers, zero digests past n_cols, one hash a
+    call (little-endian fields: a value's repr is its limb buffer)."""
+    import numpy as np
+    if spec.endianness != "little":
+        raise ValueError("blake2b_root_plain reads little-endian reprs")
+    cols = np.ascontiguousarray(comm.cpu().numpy().astype("<u2").transpose(1, 0, 2))
+    layer = [hashlib.blake2b(bytes(32) + c.tobytes(), digest_size=32).digest() for c in cols]
+    layer += [bytes(32)] * ((1 << (len(layer) - 1).bit_length()) - len(layer))
+    while len(layer) > 1:
+        layer = [hashlib.blake2b(layer[i] + layer[i + 1], digest_size=32).digest()
+                 for i in range(0, len(layer), 2)]
+    return layer[0]
+
+
+def digest_path(res: Results, dev, card: str) -> None:
+    """Commit, prove and verify with the Blake2b host digest at the two
+    full-width points: the encode on the card (K1 / K5, and K3 in prove),
+    no K2; the Blake2b and Blake3 commits share one encoded matrix; the root
+    equals the one built from that matrix with hashlib.blake2b; verify
+    returns the Horner evaluation; the host legs timed."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import commit, prove, serialize_proof, verify
+    from lcpc_proof_of_storage_tpu_torch.crypto.digest import (BLAKE2B, column_messages,
+                                                               merkle_tree_host)
+    from lcpc_proof_of_storage_tpu_torch.core.storage import limb_matrix
+
+    for name, kernel in (("ligero", "ntt"), ("brakedown", "expander")):
+        enc, coeffs, coeff_ints = full_width_point(name, dev)
+        spec, p = enc.spec, enc.spec.modulus
+        n_rows, n_per_row, n_cols = enc.get_dims(len(coeff_ints))
+        x = (SEED * 7919 + len(name)) % p
+        outer, inner = point_tensors(x, n_rows, n_per_row, p)
+        out = {}
+
+        def run():
+            comm = out["comm"] = commit(coeffs, enc, device=dev, digest="blake2b")
+            root = out["root"] = comm.get_root().root
+            proof = out["proof"] = prove(comm, outer, enc, transcript(root))
+            out["len"] = len(serialize_proof(proof, spec))
+            out["value"] = verify(root, outer, inner, proof, enc, transcript(root), device=dev,
+                                  digest="blake2b")
+
+        launches = launches_of(run)
+        res.add_launches(f"digest_{name}", launches)
+        if (not launches[kernel] or not launches["collapse"] or launches["blake3_leaves"]
+                or launches["blake3_tree"]):
+            raise AssertionError(f"digest {name}: launches {launches}")
+        if out["value"] != horner(coeff_ints, x, p):
+            raise AssertionError(f"digest {name}: verify returned a wrong evaluation")
+        comm, root = out["comm"], out["root"]
+        b3 = commit(coeffs, enc, device=dev)
+        if not torch.equal(b3.comm, comm.comm):
+            raise AssertionError(f"digest {name}: the Blake2b and Blake3 commits' encoded "
+                                 f"matrices differ")
+        if b3.get_root().root == root:
+            raise AssertionError(f"digest {name}: the Blake2b root equals the Blake3 root")
+        want = blake2b_root_plain(b3.comm, spec)
+        if want != root:
+            raise AssertionError(f"digest {name}: root {root.hex()}, hashlib's {want.hex()}")
+        say(f"digest {name}: Blake2b root {root.hex()} equals hashlib.blake2b's over the "
+            f"Blake3 commit's encoded matrix (the two commits share it); proof {out['len']} "
+            f"bytes verified with the Horner evaluation; launches {launches}")
+
+        coeff_mat = limb_matrix(coeffs, enc, dev)[0]
+        msgs, leaves = {}, {}
+        t_read = wall_ms(lambda: msgs.update(m=column_messages(enc.encode(coeff_mat), spec)))
+        t_leaves = wall_ms(lambda: leaves.update(v=BLAKE2B.hash_many(msgs["m"])))
+        t_layers = wall_ms(lambda: merkle_tree_host(leaves["v"], n_cols, BLAKE2B, dev))
+        b3_root = b3.get_root().root
+        runs = {"blake2b": (root, out["proof"]),
+                "blake3": (b3_root, prove(b3, outer, enc, transcript(b3_root)))}
+        t = {d: (cuda_ms(lambda: commit(coeffs, enc, device=dev, digest=d)),
+                 cuda_ms(lambda: verify(r, outer, inner, pr, enc, transcript(r), device=dev,
+                                        digest=d)))
+             for d, (r, pr) in runs.items()}
+        say(f"time [{card}]: digest {name} {spec.name} ({n_rows}, {n_per_row}, {n_cols}): "
+            f"commit Blake2b {t['blake2b'][0]:.3f} ms / Blake3 {t['blake3'][0]:.3f} ms; host "
+            f"legs of the Blake2b commit: encode + leaf messages on the card + read back "
+            f"{t_read:.3f} ms ({msgs['m'].nbytes} bytes), {n_cols} leaves {t_leaves:.3f} ms, "
+            f"Merkle layers {t_layers:.3f} ms; verify Blake2b "
+            f"{t['blake2b'][1]:.3f} ms / Blake3 {t['blake3'][1]:.3f} ms (medians of {N_TIMED})")
+        del out, b3, msgs, leaves, coeff_mat, runs
+        free_device(dev)
+
+
+class Spy:
+    """Records the first call of each kernel wrapper that the multi-device
+    modules make, with its arguments, so that the kernel and its plain
+    version can run again on that shard's very inputs (:meth:`check`).
+    Installed only around the legs; the checks' launches are not counted."""
+
+    def __init__(self):
+        from lcpc_proof_of_storage_tpu_torch.codes import ligero
+        from lcpc_proof_of_storage_tpu_torch.core import commit, storage
+        from lcpc_proof_of_storage_tpu_torch.ops import blake3, collapse, expander, ntt
+        from lcpc_proof_of_storage_tpu_torch.parallel import cross_chip_ntt, sharded
+        self.calls = {}
+        self.sites = [
+            (cross_chip_ntt, "ntt", ntt.ntt_plain), (ligero, "ntt", ntt.ntt_plain),
+            (cross_chip_ntt, "intt", ntt.intt_plain), (cross_chip_ntt, "mul_mod",
+                                                        ntt.mul_mod_plain),
+            (commit, "hash_columns", blake3.hash_columns_plain),
+            (sharded, "hash_columns", blake3.hash_columns_plain),
+            (sharded, "collapse", collapse.collapse_plain),
+            (storage, "collapse", collapse.collapse_plain),
+            (expander, "gather_matvec", expander.gather_matvec_plain)]
+        self.kernel_of = {"ntt": "ntt", "intt": "ntt_inverse", "mul_mod": "mul_mod",
+                          "hash_columns": "blake3_leaves", "collapse": "collapse",
+                          "gather_matvec": "expander"}
+        self._saved = []
+
+    def __enter__(self):
+        for module, attr, plain in self.sites:
+            kernel = getattr(module, attr)
+            self._saved.append((module, attr, kernel))
+            setattr(module, attr, self._wrap(kernel, plain, self.kernel_of[attr]))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, kernel in self._saved:
+            setattr(module, attr, kernel)
+        self._saved = []
+
+    def _wrap(self, kernel, plain, name):
+        def spy(*args, **kw):
+            key = "collapse_acc" if kw.get("acc") is not None else name
+            self.calls.setdefault(key, (kernel, plain, args, kw))
+            return kernel(*args, **kw)
+        return spy
+
+    def check(self, res: Results, leg: str) -> list[str]:
+        """Each recorded kernel call again, against its plain version; the
+        record is emptied.  Returns the kernels checked."""
+        done = []
+        for key, (kernel, plain, args, kw) in sorted(self.calls.items()):
+            shape = "x".join(str(s) for s in args[0].shape) if key != "expander" else \
+                "x".join(str(s) for s in args[1].shape) + f" rows {args[0].rows}"
+            got = kernel(*args, **kw)
+            want = plain(*args, **{k: v for k, v in kw.items() if k != "out"})
+            res.compare(key, f"{leg}, one shard's call ({shape})", got, want, quiet=True)
+            done.append(f"{key} {shape}")
+        self.calls = {}
+        return done
+
+
+def mesh_leg(res: Results, spy: Spy, path: str, run, expect: dict) -> dict[str, int]:
+    """One leg with the launch counts set to 0 just before and read just
+    after (path ``path`` of launches_by_path), the launches at least
+    `expect`, then every kernel call recorded on a shard held against its
+    plain version."""
+    with spy:
+        launches = launches_of(run)
+    res.add_launches(path, launches)
+    short = {k: (launches[k], n) for k, n in expect.items() if launches[k] < n}
+    if short:
+        raise AssertionError(f"{path}: launches (got, at least) {short}; all {launches}")
+    checked = spy.check(res, path)
+    say(f"mesh {path}: launches {launches}; bit-exact against plain on one shard: "
+        f"{'; '.join(checked)}")
+    return launches
+
+
+def mesh_meshes(dev) -> list:
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import make_mesh
+    meshes = [make_mesh(D, device=dev) for D in MESH_SIZES]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    return meshes
+
+
+def mesh_tag(mesh) -> str:
+    return f"D{mesh.size}" + ("" if len(set(mesh.devices)) == 1 else "_cards")
+
+
+def mesh_path(res: Results, dev, card: str) -> None:
+    """Legs a-g of __graft_entry__.dryrun_multichip at the two full-width
+    points, on meshes of 3, 4 and 8 shards on one card (and one shard a card
+    where there are several): (a) the row-sharded commit, also at D = 3;
+    at power-of-two D (b) the wide commit through the cross-device NTT, (c)
+    training_step against the one-device K3 collapse, (d) the wide prove and
+    verify, the wide decode through the cross-device inverse, (f) the
+    Brakedown row-sharded commit, prove and verify, (g) the Brakedown wide
+    commit ((e), the streamed commit, is the streamed_* phases').  Roots and
+    proof bytes equal the one-device path's; every kernel call made on a
+    shard is held against its plain version on one shard (Spy); launches
+    per leg.  The shards share one card: the times are no multi-card
+    speed-up."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import (commit, prove, serialize_proof, sharded_commit,
+                                                 verify, wide_commit)
+    from lcpc_proof_of_storage_tpu_torch.core.storage import limb_matrix
+    from lcpc_proof_of_storage_tpu_torch.ops import collapse
+    from lcpc_proof_of_storage_tpu_torch.parallel import mesh as pm
+    from lcpc_proof_of_storage_tpu_torch.parallel.cross_chip_ntt import split_lengths
+    from lcpc_proof_of_storage_tpu_torch.parallel.sharded import training_step
+
+    spy = Spy()
+    meshes = mesh_meshes(dev)
+    say(f"mesh: meshes {[str(m) for m in meshes]}; the shards of a mesh on one card share "
+        f"it, so the times below are no multi-card speed-up")
+    for name in ("ligero", "brakedown"):
+        enc, coeffs, coeff_ints = full_width_point(name, dev)
+        spec, p = enc.spec, enc.spec.modulus
+        n_rows, n_per_row, n_cols = enc.get_dims(len(coeff_ints))
+        x = (SEED * 104729 + len(name)) % p
+        outer, inner = point_tensors(x, n_rows, n_per_row, p)
+        value = horner(coeff_ints, x, p)
+        single = commit(coeffs, enc, device=dev)
+        root = single.get_root().root
+        blob = serialize_proof(prove(single, outer, enc, transcript(root)), spec)
+        t_single = cuda_ms(lambda: commit(coeffs, enc, device=dev))
+        n_levels = len(enc.encoder.pre) + len(enc.encoder.post) if name == "brakedown" else 0
+        times = [f"one device {t_single:.3f} ms"]
+        for mesh in meshes:
+            D, tag = mesh.size, mesh_tag(mesh)
+            out = {}
+            encode_kernel = {"ntt": D} if name == "ligero" else {"expander": n_levels}
+
+            def leg_a():
+                out["a"] = sharded_commit(coeffs, enc, mesh)
+            mesh_leg(res, spy, f"mesh_a_{name}_{tag}", leg_a,
+                     {**encode_kernel, "blake3_leaves": D, "blake3_tree": 1})
+            if not torch.equal(out["a"].hashes, single.hashes):
+                raise AssertionError(f"mesh (a) {name} {tag}: Merkle array differs")
+            times.append(f"(a) {tag} {cuda_ms(leg_a):.3f} ms")
+            if name == "brakedown":
+                def leg_f():
+                    pr = prove(out["a"], outer, enc, transcript(root))
+                    out["f"] = (serialize_proof(pr, spec),
+                                verify(root, outer, inner, pr, enc, transcript(root),
+                                       device=dev))
+                mesh_leg(res, spy, f"mesh_f_{name}_{tag}", leg_f,
+                         {"collapse": 1, "expander": n_levels})
+                if out["f"] != (blob, value):
+                    raise AssertionError(f"mesh (f) {tag}: proof bytes or evaluation differ")
+            if D & (D - 1):
+                continue
+            enc_w = enc.with_mesh(mesh)
+            if name == "ligero":
+                n1, n2 = split_lengths(n_cols, D)
+                if n1 % D or n2 % D:
+                    raise AssertionError(f"cross-device split ({n1}, {n2}) at D = {D}")
+                say(f"mesh {tag}: n = {n_cols} splits as n1 = {n1}, n2 = {n2}")
+
+            def leg_b():
+                out["b"] = commit(coeffs, enc_w)
+            wide_kernels = ({"ntt": 2 * D, "mul_mod": D} if name == "ligero"
+                            else {"expander": n_levels})
+            mesh_leg(res, spy, f"mesh_{'b' if name == 'ligero' else 'g'}_{name}_{tag}", leg_b,
+                     {**wide_kernels, "blake3_leaves": D, "blake3_tree": 1})
+            if not torch.equal(out["b"].hashes, single.hashes):
+                raise AssertionError(f"mesh wide {name} {tag}: Merkle array differs")
+            times.append(f"wide {tag} {cuda_ms(leg_b):.3f} ms")
+
+            def leg_d():
+                pr = prove(out["b"], outer, enc_w, transcript(root))
+                out["d"] = (serialize_proof(pr, spec),
+                            verify(root, outer, inner, pr, enc_w, transcript(root)))
+            mesh_leg(res, spy, f"mesh_d_{name}_{tag}", leg_d,
+                     {"collapse": D if n_per_row % D == 0 else 1, **wide_kernels})
+            if out["d"] != (blob, value):
+                raise AssertionError(f"mesh (d) {name} {tag}: proof bytes or evaluation differ")
+            if name == "brakedown":
+                continue
+
+            def leg_decode():
+                out["dec"] = enc_w.decode(single.comm)
+            mesh_leg(res, spy, f"mesh_decode_{name}_{tag}", leg_decode,
+                     {"ntt_inverse": 2 * D, "mul_mod": D})
+            if (not torch.equal(out["dec"][:, :n_per_row], single.coeffs)
+                    or out["dec"][:, n_per_row:].any()):
+                raise AssertionError(f"mesh decode {tag}: not the committed coefficients")
+
+            coeff_mat = limb_matrix(coeffs, enc, dev)[0]
+            g = torch.Generator(device=dev).manual_seed(SEED + D)
+            t = random_limbs_device(g, (2, n_rows), spec, dev)
+
+            def leg_c():
+                out["c"] = training_step(enc, mesh)(coeff_mat, t[0], t[1])
+            mesh_leg(res, spy, f"mesh_c_{name}_{tag}", leg_c,
+                     {"ntt": D, "blake3_leaves": D, "collapse": 1, "collapse_acc": D - 1})
+            comm_c, leaves, p_random, p_eval = out["c"]
+            want = collapse.collapse(coeff_mat, t, spec)
+            if (not torch.equal(pm.gather(comm_c, dev, 1), single.comm)
+                    or not torch.equal(leaves, single.hashes[:n_cols])
+                    or not torch.equal(p_random, want[0]) or not torch.equal(p_eval, want[1])):
+                raise AssertionError(f"mesh (c) {tag}: training_step differs from one device")
+            del out, coeff_mat
+            free_device(dev)
+        say(f"mesh {name}: roots, Merkle arrays, proof bytes ({len(blob)}) and evaluations "
+            f"equal the one-device path's on every mesh")
+        say(f"time [{card}]: mesh {name} commits (medians of {N_TIMED}), the shards of each "
+            f"mesh sharing one card: " + ", ".join(times))
+        del single
+        free_device(dev)
+
+
 KERNEL_INFO = {
     "ntt": ("lcpc_proof_of_storage_tpu_torch/csrc/ntt.cu",
             "lcpc_proof_of_storage_tpu/ops/ntt_pallas3.py:546"),
@@ -2521,6 +2874,8 @@ PHASES = (
     ("brakedown_big", brakedown_big),
     ("expander_collapse_kernels", expander_collapse_kernels),
     ("blake3_kernels", blake3_kernels),
+    ("digest", digest_path),
+    ("mesh", mesh_path),
     ("streamed_kernels", lambda res, dev, card: check_streamed_kernels(res, dev)),
     ("streamed_modes", streamed_modes),
     ("streamed_device", streamed_device),
@@ -2531,7 +2886,17 @@ PHASES = (
 )
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+    names = [name for name, _ in PHASES]
+    parser = argparse.ArgumentParser(description="On-card smoke run of the PyTorch / CUDA port.")
+    parser.add_argument("--phases", help="comma-separated phases to run, of: "
+                        f"{', '.join(names)} (default: all)")
+    args = parser.parse_args(argv)
+    chosen = names if args.phases is None else args.phases.split(",")
+    if set(chosen) - set(names):
+        print(f"chip_smoke: unknown phases {sorted(set(chosen) - set(names))}", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -2567,18 +2932,22 @@ def main() -> int:
 
     res = Results()
     for name, phase in PHASES:
+        if name not in chosen:
+            continue
         t0 = time.perf_counter()
         phase(res, dev, card)
         say(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     say(f"total {time.perf_counter() - t_start:.1f} s")
 
     say(card)
+    # every phase fills every key; a run of some phases (--phases) may leave some None
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(res.launches[name].values()),
-         "launches_by_path": res.launches[name], "max_abs_err": res.err[name],
-         "ms": res.ms[name], "plain_ms": res.plain_ms[name], "bound_ms": res.bound[name][0],
-         "bound_by": res.bound[name][1], "library_ms": None}
+         "launches": sum(res.launches.get(name, {}).values()),
+         "launches_by_path": res.launches.get(name, {}), "max_abs_err": res.err.get(name),
+         "ms": res.ms.get(name), "plain_ms": res.plain_ms.get(name),
+         "bound_ms": res.bound.get(name, (None, None))[0],
+         "bound_by": res.bound.get(name, (None, None))[1], "library_ms": None}
         for name, (src, rep) in KERNEL_INFO.items()]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

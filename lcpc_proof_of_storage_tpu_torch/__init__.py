@@ -13,8 +13,14 @@ Typical entry points:
                                                  Transcript, commit, commit_streamed,
                                                  prove, verify, serialize_proof)
 
-The transcript, ChaCha, path folds, matgen walk and proof serialization are
-host code: the port's own copies of the reference's JAX-free modules
+``commit(..., digest="blake2b")`` (and ``verify(..., digest=)``) hash on the
+host instead (``crypto/digest.py``).  ``make_mesh``, ``sharded_commit`` and
+``wide_commit`` run the multi-device paths on a mesh of devices in one
+process (``parallel/``); ``serialize_commit`` / ``deserialize_commit`` carry
+a whole commitment.
+
+The transcript, ChaCha, path folds, matgen walk and serialization are host
+code: the port's own copies of the reference's JAX-free modules
 (``crypto/``, ``fields/field.py``, ``utils/serde.py``) and of its C++ host
 library (``native/``).
 """
@@ -37,6 +43,13 @@ _LAZY = {
     "serialize_proof": ".utils.serde",
     "deserialize_proof": ".utils.serde",
     "proof_to_json": ".utils.serde",
+    "serialize_commit": ".utils.serde",
+    "deserialize_commit": ".utils.serde",
+    "serialize_root": ".utils.serde",
+    "deserialize_root": ".utils.serde",
+    "make_mesh": ".parallel.mesh",
+    "sharded_commit": ".parallel.sharded",
+    "wide_commit": ".parallel.wide",
 }
 
 

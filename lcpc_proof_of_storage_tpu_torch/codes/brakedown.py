@@ -1,9 +1,10 @@
 """Brakedown (SDIG expander) encoding for the 2d polynomial commitment.
 
 Counterpart of ``lcpc_proof_of_storage_tpu/codes/brakedown.py``
-(lcpc-brakedown-pc/src/lib.rs) without the mesh hooks: the same dims solver
-and soundness formulas, with the row encode going through
-:class:`~..ops.expander.ExpanderEncoder` (kernel K5 on CUDA).
+(lcpc-brakedown-pc/src/lib.rs): the same dims solver and soundness formulas,
+with the row encode going through :class:`~..ops.expander.ExpanderEncoder`
+(kernel K5 on CUDA); under a mesh (``with_mesh``) through its
+``encode_wide``, every level sharded by output rows.
 
   * n_col_opens = ceil(-lambda / log2(1 - dist/3))          (lib.rs:57-61)
   * n_degree_tests via lcpc-2d                              (lib.rs:64-66)
@@ -19,6 +20,7 @@ import torch
 from ..core.encoding import LcEncoding, n_degree_tests, next_power_of_two
 from ..fields.field import FieldSpec
 from ..ops.expander import SDIG_CODE_3, ExpanderEncoder, SdigSpec
+from ..parallel.mesh import gather, scatter
 
 LAMBDA = 128
 
@@ -87,11 +89,25 @@ class BrakedownEncoding(LcEncoding):
         device.  As in the reference (codes/brakedown.py encode), only the
         first n_per_row coefficients of each row enter the codeword: a
         verifier's over-long row loses its extra coefficients here.  Rows of
-        exactly n_per_row are encoded without a copy."""
+        exactly n_per_row are encoded without a copy.  Under a mesh the rows
+        are sharded, go through :meth:`encode_wide` and are gathered back."""
         if not self.n_per_row <= rows.shape[-2] <= self.n_cols:
             raise ValueError(f"encode: rows of {rows.shape[-2]} coefficients, code has "
                              f"{self.n_per_row} per row")
+        if self.mesh is not None:
+            width = -(-self.n_cols // self.mesh.size) * self.mesh.size
+            blocks = scatter(rows[:, : self.n_per_row], self.mesh, 1, width)
+            out = gather(self.encode_wide(blocks), rows.device, 1)
+            return out[:, : self.n_cols].contiguous()
         return self.encoder.encode(rows[:, : self.n_per_row].contiguous())
+
+    def encode_wide(self, blocks: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The expander encode over the mesh (``ExpanderEncoder.encode_wide``):
+        the output is n_cols rounded up to a multiple of the mesh size, the
+        zero columns last; ``parallel/wide.py`` slices their digests off
+        before the Merkle tree.  The reference's graph encode
+        (lcpc-brakedown-pc/src/encode.rs:36-110) runs on one host."""
+        return self.encoder.encode_wide(blocks, self.mesh)
 
     def get_dims(self, length: int) -> tuple[int, int, int]:
         n_rows = (length + self.n_per_row - 1) // self.n_per_row

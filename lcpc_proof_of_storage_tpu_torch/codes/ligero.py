@@ -16,6 +16,12 @@ Every route gives the same codewords, so roots and proofs do not depend on
 it.  The route is a field of the encoding, as the reference's mesh is: no
 environment variable chooses it.
 
+Under a mesh (``with_mesh``), encode and decode run the cross-device
+four-step NTT of ``parallel/cross_chip_ntt.py`` instead, forward and
+inverse: its local transforms are :func:`ops.ntt.ntt` and
+:func:`ops.ntt.intt` (K1 and K4's inverse on CUDA) and its twiddle product
+is KM, whatever the encoding's ``ntt`` route.
+
   * n_col_opens = ceil(-lambda / log2((1+rho)/2))          (lib.rs:61-64)
   * n_degree_tests via lcpc-2d's formula                    (lib.rs:66-68)
   * _get_dims proof-size-optimizing solver                  (lib.rs:70-112)
@@ -33,6 +39,8 @@ import torch
 from ..core.encoding import LcEncoding, n_degree_tests, next_power_of_two
 from ..fields.field import FieldSpec
 from ..ops.ntt import ROUTES, NttTables, intt, ntt, ntt_four_step, ntt_fused_small
+from ..parallel.cross_chip_ntt import cross_chip_ntt
+from ..parallel.mesh import gather, scatter
 
 LAMBDA = 128
 
@@ -60,6 +68,9 @@ class LigeroEncoding(LcEncoding):
         self.n_cols = n_cols
         self.ntt = ntt
         self.ntt_tables = NttTables(spec, n_cols, ntt)
+        self._reset_caches()
+
+    def _reset_caches(self) -> None:
         self._tables_on = {self.ntt_tables.device: self.ntt_tables}
 
     # -- constructors --------------------------------------------------------
@@ -140,11 +151,15 @@ class LigeroEncoding(LcEncoding):
 
     def encode(self, rows: torch.Tensor) -> torch.Tensor:
         """NTT of (batch, width, L) coefficient rows zero-padded to n_cols, on
-        the rows' device.  Every one of the `width` coefficients enters the
+        the rows' device (under a mesh: sharded, :meth:`encode_wide`, and
+        gathered back).  Every one of the `width` coefficients enters the
         codeword, so an over-long proof row fails the degree check."""
         batch, width, L = rows.shape
         if width > self.n_cols:
             raise ValueError(f"encode: rows of {width} coefficients, code has {self.n_cols}")
+        if self.mesh is not None:
+            return gather(self.encode_wide(scatter(rows, self.mesh, 1, self.n_cols)),
+                          rows.device, 1)
         padded = rows.new_zeros((batch, self.n_cols, L))
         padded[:, :width] = rows
         if self.ntt == "four_step":
@@ -153,9 +168,17 @@ class LigeroEncoding(LcEncoding):
             return ntt_fused_small(padded, self.spec, width, self.tables(rows.device))
         return ntt(padded, self.spec, width, self.tables(rows.device))
 
+    def encode_wide(self, blocks: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The cross-device NTT of the column blocks (``LcEncoding``)."""
+        return cross_chip_ntt(blocks, self.spec, self.mesh)
+
     def decode(self, rows: torch.Tensor) -> torch.Tensor:
         """Inverse NTT of (batch, n_cols, L) codewords on the rows' device:
-        all n_cols coefficients (the PoS read path truncates them)."""
+        all n_cols coefficients (the PoS read path truncates them).  Under a
+        mesh, the cross-device inverse."""
+        if self.mesh is not None:
+            return gather(cross_chip_ntt(scatter(rows, self.mesh, 1), self.spec, self.mesh,
+                                         inverse=True), rows.device, 1)
         if self.ntt == "fused_small":
             return ntt_fused_small(rows, self.spec, tables=self.tables(rows.device),
                                    inverse=True)

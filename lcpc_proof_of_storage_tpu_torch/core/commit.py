@@ -1,4 +1,4 @@
-"""Core 2d linear-code polynomial commitment engine, single device, Blake3.
+"""Core 2d linear-code polynomial commitment engine.
 
 Counterpart of ``lcpc_proof_of_storage_tpu/core/commit.py`` (itself a
 re-creation of lcpc-2d/src/lib.rs: commit 651-700, merkleize 720-815,
@@ -8,7 +8,12 @@ hash, Merkle layers and tensor collapse run on the commitment's device (the
 encoding's kernel, K2 and K3 on CUDA); the merlin transcript, ChaCha
 challenge expansion and the Merkle path folds run on the host through the
 port's copies of the reference's host modules, so challenges and proofs are
-bit-equal.
+bit-equal.  A digest other than Blake3 (``crypto/digest.py``) hashes the
+leaves and the Merkle layers on the host while the encode stays on the
+device.  An encoding with a mesh (``LcEncoding.with_mesh``) commits through
+the wide pipeline (:func:`wide_commit_from_matrix`): its commitment keeps the
+encoded matrix column-sharded over the mesh (``core/storage.py
+ShardedRows``), and prove and verify read it and re-encode through the mesh.
 
 Proof objects live on the host and keep the reference's attribute names
 (``LcColumn._col/_limbs/_path/_sibs/_sibi``, ``_LimbRow._limbs``), so
@@ -24,11 +29,13 @@ import torch
 
 from ..crypto.blake3_ref import blake3
 from ..crypto.chacha import ChaChaRng, UniformUsize
+from ..crypto.digest import HostDigest, column_leaves_host, get_digest, merkle_tree_host
 from ..crypto.transcript import Transcript
 from ..fields.field import FieldSpec, ints_to_limbs, limbs_to_ints
 from ..fields.limb import limb_field
 from ..native import fold_paths_native
 from ..ops.blake3 import digest_to_bytes, digests_to_bytes, hash_columns, merkle_array, merkle_tree
+from ..parallel.mesh import gather, scatter
 from .encoding import (LABEL_CO, LABEL_DT, LABEL_PE, LABEL_PR, LcEncoding, ceil_log2,
                        next_power_of_two)
 from .storage import as_rows, limb_matrix
@@ -238,27 +245,85 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def commit(coeffs, enc: LcEncoding, device=None) -> LcCommit:
+def _device_for(enc: LcEncoding, device):
+    """`device`, else the first device of the encoding's mesh, else None."""
+    if device is None and enc.mesh is not None:
+        return enc.mesh.devices[0]
+    return device
+
+
+def commit(coeffs, enc: LcEncoding, device=None, digest: str = "blake3") -> LcCommit:
     """lcpc-2d/src/lib.rs:651-700, on `device` (default: the device of a
-    CUDA coefficient tensor, else :func:`default_device`)."""
+    CUDA coefficient tensor, else the first device of the encoding's mesh,
+    else :func:`default_device`).
+
+    `digest` is the reference's digest type parameter (``LcCommit<D, E>``,
+    lib.rs:174-191).  Blake3 (default) hashes the columns and builds the
+    Merkle tree on the device (K2).  Another digest of ``crypto/digest.py``
+    (e.g. ``"blake2b"``) encodes on the device (K1 or K5), lays the leaf
+    messages out there and reads them back once, and hashes the leaves and
+    the layers on the host.  An encoding with a mesh commits through
+    :func:`wide_commit_from_matrix`, Blake3 only."""
     if device is None and isinstance(coeffs, torch.Tensor) and coeffs.is_cuda:
         device = coeffs.device
-    device = default_device(device)
-    coeff_mat, (n_rows, n_per_row, n_cols) = limb_matrix(coeffs, enc, device)
+    device = default_device(_device_for(enc, device))
+    if digest != "blake3" and enc.mesh is not None:
+        raise ProverError("generic digests commit on one device only")
+    host_digest = None if digest == "blake3" else get_digest(digest)
+    coeff_mat, dims = limb_matrix(coeffs, enc, device)
+    n_rows, n_per_row, n_cols = dims
+    if enc.mesh is not None:
+        return wide_commit_from_matrix(coeff_mat, dims, enc)
     comm = enc.encode(coeff_mat)
-    hashes = merkle_tree_device(n_cols, comm.device,
-                                lambda out: hash_columns(comm, enc.spec, out=out))
+    if host_digest is None:
+        hashes = merkle_tree_device(n_cols, comm.device,
+                                    lambda out: hash_columns(comm, enc.spec, out=out))
+    else:
+        leaves = column_leaves_host(comm, enc.spec, host_digest)
+        hashes = merkle_tree_host(leaves, n_cols, host_digest, comm.device)
     return LcCommit(coeffs=coeff_mat, comm=comm, n_rows=n_rows, n_cols=n_cols,
+                    n_per_row=n_per_row, hashes=hashes)
+
+
+def wide_commit_from_matrix(coeff_mat: torch.Tensor, dims: tuple[int, int, int],
+                            enc: LcEncoding) -> LcCommit:
+    """The wide pipeline (``parallel/wide.py``) on a prepared (n_rows,
+    n_per_row, L) int32 coefficient matrix, for an encoding with a mesh: the
+    encoded-column axis sharded over the mesh (``enc.encode_wide``), each
+    shard hashing its own columns (K2's leaves), K2's tree over the gathered
+    leaves on the mesh's first device.  Brakedown's ragged width is padded to
+    a multiple of the mesh size for the encode and the leaves, and the
+    padding's digests are sliced off before the tree.  The commitment keeps
+    the encoded matrix column-sharded (padding included), and the
+    coefficients too where the mesh size divides n_per_row."""
+    n_rows, n_per_row, n_cols = dims
+    mesh = enc.mesh
+    D = mesh.size
+    comm = enc.encode_wide(scatter(coeff_mat, mesh, 1, -(-n_cols // D) * D))
+    leaves = [hash_columns(block, enc.spec) for block in comm]
+    device = mesh.devices[0]
+    hashes = merkle_tree_device(
+        n_cols, device, lambda out: out.copy_(gather(leaves, device, 0)[:n_cols]))
+    coeffs = scatter(coeff_mat, mesh, 1) if n_per_row % D == 0 else coeff_mat
+    return LcCommit(coeffs=coeffs, comm=comm, n_rows=n_rows, n_cols=n_cols,
                     n_per_row=n_per_row, hashes=hashes)
 
 
 def check_comm(comm: LcCommit, enc: LcEncoding) -> None:
     """Raise ProverError unless the commitment's fields agree with each other
     and with `enc`.  comm may be None (a streamed commitment that keeps no
-    encoded matrix); where it is kept, its width is exactly n_cols."""
+    encoded matrix); where it is kept, its width is exactly n_cols, or, under
+    a mesh only, at least n_cols (a wide Brakedown matrix is zero-padded to a
+    multiple of the mesh size; no column past n_cols is opened)."""
     if comm.coeff_rows is None:
         raise ProverError("a synthetic commitment keeps no coefficients to prove from")
-    ok = ((comm.comm_rows is None or comm.comm_rows.shape[:2] == (comm.n_rows, comm.n_cols))
+    if comm.comm_rows is None:
+        width_ok = True
+    else:
+        rows, width = comm.comm_rows.shape[:2]
+        width_ok = rows == comm.n_rows and (
+            width >= comm.n_cols if enc.mesh is not None else width == comm.n_cols)
+    ok = (width_ok
           and comm.coeff_rows.shape[:2] == (comm.n_rows, comm.n_per_row)
           and comm.hashes_len == 2 * next_power_of_two(comm.n_cols) - 1
           and enc.dims_ok(comm.n_per_row, comm.n_cols))
@@ -441,15 +506,16 @@ def prove(comm: LcCommit, outer_tensor: list[int], enc: LcEncoding,
 
 def _verify_checks_fused(enc: LcEncoding, rows_mat: np.ndarray, rand_mats: torch.Tensor,
                          outer_mat: torch.Tensor, cols: np.ndarray, cols_to_open: list[int],
-                         dev: torch.device):
+                         dev: torch.device, hash_leaves: bool = True):
     """The verifier's device work: re-encode the degree-test and eval rows
-    (the encoding's kernel: K1 for Ligero, K5 for Brakedown), compare them at
-    the opened positions with the column dot products, and hash the column
-    leaves (K2).  rows_mat is (ndt+1, width, L) with width >= n_per_row for a
-    malformed proof; the encode is given all `width` coefficients (Ligero
-    reads them all, so an over-long row fails the degree check; Brakedown
-    reads n_per_row, as the reference does).
-    Returns (rand_ok (ndt, k), eval_ok (k,), leaves (k, 8))."""
+    (the encoding's kernel: K1 for Ligero, K5 for Brakedown; through the mesh
+    under one), compare them at the opened positions with the column dot
+    products, and, with `hash_leaves`, hash the column leaves (K2).  rows_mat
+    is (ndt+1, width, L) with width >= n_per_row for a malformed proof; the
+    encode is given all `width` coefficients (Ligero reads them all, so an
+    over-long row fails the degree check; Brakedown reads n_per_row, as the
+    reference does).
+    Returns (rand_ok (ndt, k), eval_ok (k,), leaves (k, 8) or None)."""
     lf = limb_field(enc.spec)
     fft = enc.encode(torch.from_numpy(rows_mat).to(dev))
     sel = fft[:, torch.tensor(cols_to_open, dtype=torch.int64, device=dev)]   # (ndt+1, k, L)
@@ -458,7 +524,7 @@ def _verify_checks_fused(enc: LcEncoding, rows_mat: np.ndarray, rand_mats: torch
     d_eval = lf.dot(cols_dev, outer_mat[None], axis=1)                        # (k, L)
     rand_ok = (d_rand == sel[:-1]).all(dim=-1)
     eval_ok = (d_eval == sel[-1]).all(dim=-1)
-    leaves = hash_columns(cols_dev.transpose(0, 1).contiguous(), enc.spec)
+    leaves = hash_columns(cols_dev.transpose(0, 1).contiguous(), enc.spec) if hash_leaves else None
     return rand_ok.cpu().numpy(), eval_ok.cpu().numpy(), leaves
 
 
@@ -470,6 +536,44 @@ def _fold_path(leaf: bytes, col_num: int, path: list[bytes]) -> bytes:
         h = blake3(h + p) if col % 2 == 0 else blake3(p + h)
         col >>= 1
     return h
+
+
+def verify_column_path(column: LcColumn, col_num: int, root: bytes, spec: FieldSpec,
+                       digest: str = "blake3") -> bool:
+    """lcpc-2d/src/lib.rs:985-1008 on the host, for one column: its leaf
+    H(0^32 || reprs) folded up its path equals `root`.  verify checks all
+    opened columns at once instead; this is the single-column entry."""
+    msg = b"\x00" * 32 + b"".join(spec.to_repr(v) for v in column.col)
+    if digest == "blake3":
+        return _fold_path(blake3(msg), col_num, column.path) == root
+    d = get_digest(digest)
+    return _fold_paths_generic([d.hash(msg)], [col_num], [column.path], d)[0] == root
+
+
+def _fold_paths_generic(leaf_bytes: list[bytes], col_nums: list[int],
+                        paths: list[list[bytes]], d: HostDigest) -> list[bytes]:
+    """_fold_path for a host digest of crypto/digest.py: a level of every
+    path at a time through ``d.hash_many`` where the paths are well formed
+    (one depth, 32-byte entries), else column by column, so a malformed proof
+    fails the root comparison."""
+    k = len(col_nums)
+    depth = len(paths[0]) if k else 0
+    if any(len(p) != depth or any(len(e) != 32 for e in p) for p in paths):
+        out = []
+        for h, col, path in zip(leaf_bytes, col_nums, paths):
+            for p in path:
+                h = d.hash(h + p) if col % 2 == 0 else d.hash(p + h)
+                col >>= 1
+            out.append(h)
+        return out
+    h = np.frombuffer(b"".join(leaf_bytes), np.uint8).reshape(k, 32)
+    sibs = np.frombuffer(b"".join(b"".join(p) for p in paths), np.uint8).reshape(k, depth, 32)
+    right = (np.asarray(col_nums, np.int64)[:, None] >> np.arange(depth)) & 1 == 1
+    for lvl in range(depth):
+        s = sibs[:, lvl]
+        odd = right[:, lvl, None]
+        h = d.hash_many(np.concatenate([np.where(odd, s, h), np.where(odd, h, s)], axis=1))
+    return [h[i].tobytes() for i in range(k)]
 
 
 def _fold_paths_batch(leaf_bytes: list[bytes], col_nums: list[int],
@@ -502,13 +606,19 @@ def _fold_paths_batch(leaf_bytes: list[bytes], col_nums: list[int],
 
 
 def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
-           proof: LcEvalProof, enc: LcEncoding, tr: Transcript, device=None) -> int:
+           proof: LcEvalProof, enc: LcEncoding, tr: Transcript, device=None,
+           digest: str = "blake3") -> int:
     """lcpc-2d/src/lib.rs:862-982.  Returns the evaluation <inner, p_eval>.
 
-    The proof lives on the host; its checks run on `device` (default:
-    :func:`default_device`: the current CUDA card; without one it raises, so
-    pass ``device="cpu"`` for the host)."""
-    dev = default_device(device)
+    The proof lives on the host; its checks run on `device` (default: the
+    first device of the encoding's mesh, else :func:`default_device`: the
+    current CUDA card; without one it raises, so pass ``device="cpu"`` for
+    the host).  `digest` must be the committer's (the root binds it): the
+    re-encode and the column dots stay on the device, and a digest other
+    than Blake3 hashes the leaves and folds the paths on the host, as the
+    reference does (core/commit.py:1140-1153 of the JAX package)."""
+    dev = default_device(_device_for(enc, device))
+    host_digest = None if digest == "blake3" else get_digest(digest)
     spec = enc.spec
     lf = limb_field(spec)
 
@@ -549,18 +659,24 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
     for i, limbs in enumerate(row_limbs):
         rows_mat[i, : min(len(limbs), width)] = limbs[:width]
     rand_ok_arr, eval_ok_arr, leaves = _verify_checks_fused(
-        enc, rows_mat, rand_mats, outer_mat, cols_np, cols_to_open, dev)
+        enc, rows_mat, rand_mats, outer_mat, cols_np, cols_to_open, dev,
+        hash_leaves=host_digest is None)
 
-    # the packed sibling array is trusted only while every column is still
-    # lazily backed by its own row of it
-    sp = getattr(proof, "_paths_packed", None)
-    packed_ok = (sp is not None and sp.ndim == 3 and sp.shape[0] == len(proof.columns)
-                 and sp.shape[2] == 32
-                 and all(c._path is None and c._sibs is sp and c._sibi == i
-                         for i, c in enumerate(proof.columns)))
-    folded = _fold_paths_batch(digests_to_bytes(leaves), cols_to_open,
-                               None if packed_ok else [c.path for c in proof.columns],
-                               sibs_packed=sp if packed_ok else None)
+    if host_digest is not None:
+        leaf_rows = column_leaves_host(cols_np.transpose(1, 0, 2), spec, host_digest)
+        folded = _fold_paths_generic([r.tobytes() for r in leaf_rows], cols_to_open,
+                                     [c.path for c in proof.columns], host_digest)
+    else:
+        # the packed sibling array is trusted only while every column is still
+        # lazily backed by its own row of it
+        sp = getattr(proof, "_paths_packed", None)
+        packed_ok = (sp is not None and sp.ndim == 3 and sp.shape[0] == len(proof.columns)
+                     and sp.shape[2] == 32
+                     and all(c._path is None and c._sibs is sp and c._sibi == i
+                             for i, c in enumerate(proof.columns)))
+        folded = _fold_paths_batch(digests_to_bytes(leaves), cols_to_open,
+                                   None if packed_ok else [c.path for c in proof.columns],
+                                   sibs_packed=sp if packed_ok else None)
     for k, col_num in enumerate(cols_to_open):
         if not all(rand_ok_arr[i][k] for i in range(n_degree)):
             raise VerifierError("ColumnDegree", f"column {col_num}")

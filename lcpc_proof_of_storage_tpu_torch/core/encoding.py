@@ -1,14 +1,17 @@
 """Linear-code encoding interface (reference: LcEncoding trait,
 lcpc-2d/src/lib.rs:75-105), declared again for the PyTorch port.
 
-Counterpart of ``lcpc_proof_of_storage_tpu/core/encoding.py`` without the
-mesh hooks.  The domain-separation labels keep the reference's def_labels!
-quirk (lcpc-2d/src/macros.rs:29-36): every encoding shares b"$l//DT" etc.
+Counterpart of ``lcpc_proof_of_storage_tpu/core/encoding.py``, with its
+mesh hooks (``with_mesh``, ``encode_wide``; the mesh is a
+``parallel/mesh.py Mesh``).  The domain-separation labels keep the
+reference's def_labels! quirk (lcpc-2d/src/macros.rs:29-36): every encoding
+shares b"$l//DT" etc.
 """
 
 from __future__ import annotations
 
 import abc
+import copy
 
 import torch
 
@@ -42,12 +45,38 @@ class LcEncoding(abc.ABC):
 
     spec: FieldSpec
 
+    # wide-row mode: when set, commit, encode, decode and verify go through
+    # the mesh (parallel/wide.py, parallel/cross_chip_ntt.py)
+    mesh = None
+
+    def with_mesh(self, mesh) -> "LcEncoding":
+        """A copy of this encoding in wide-row mode: its encoded-column axis
+        is sharded over `mesh`.  The receiver is untouched, so one wide
+        commit does not turn every later use of the encoding wide, and the
+        copy's per-encoding caches start empty (:meth:`_reset_caches`)."""
+        new = copy.copy(self)
+        new.mesh = mesh
+        new._reset_caches()
+        return new
+
+    def _reset_caches(self) -> None:
+        """Give a copy made by :meth:`with_mesh` caches of its own."""
+
+    def encode_wide(self, blocks: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Encode over the mesh: `blocks` are the D column blocks, each on its
+        mesh device, of (batch, w, L) rows with the coefficients in the first
+        n_per_row columns and zeros after, w = n_cols rounded up to a multiple
+        of D -> the D column blocks of the codewords, zero-padded to width w
+        the same way.  Only codes with a cross-device formulation have it."""
+        raise NotImplementedError(f"{type(self).__name__} has no wide encode")
+
     @abc.abstractmethod
     def encode(self, rows: torch.Tensor) -> torch.Tensor:
         """Encode coefficient rows: (batch, width, L) with n_per_row <= width
         <= n_cols (a verifier widens an over-long proof row) -> (batch, n_cols,
-        L) codewords, on the rows' device.  Each code decides how it reads
-        the coefficients past n_per_row."""
+        L) codewords, on the rows' device (through the mesh, where the
+        encoding has one).  Each code decides how it reads the coefficients
+        past n_per_row."""
 
     @abc.abstractmethod
     def get_dims(self, length: int) -> tuple[int, int, int]:

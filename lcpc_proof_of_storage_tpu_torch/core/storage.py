@@ -5,10 +5,13 @@ encoded matrix, (n_rows, n_cols, L).  The one-shot commit keeps both on the
 device as int32 limbs.  A streamed commitment (core/streamed.py) keeps
 16-bit limbs: on the device as int16 bit patterns, or in host memory as a
 uint16 array that moves one row batch at a time through pinned staging; it
-may keep no encoded matrix at all.  This module is the one place that knows
-those forms: :func:`as_rows` wraps a tensor in :class:`DeviceRows` and a
-host array in :class:`HostRows`, and both serve row batches, column
-gathers, the collapse and the re-encode of opened columns.
+may keep no encoded matrix at all.  A commitment made over a mesh
+(``parallel/``) keeps a matrix column-sharded: one tensor a mesh position,
+each holding a block of neighbouring columns of all rows on its device.
+This module is the one place that knows those forms: :func:`as_rows` wraps
+a tensor in :class:`DeviceRows`, a host array in :class:`HostRows` and a
+list of column blocks in :class:`ShardedRows`; they serve row batches,
+column gathers, the collapse and the re-encode of opened columns.
 
 The batched collapse and re-encode are the reference's
 ``collapse_streamed`` and ``open_columns_streamed``
@@ -246,11 +249,56 @@ class HostRows(_Rows):
         return acc
 
 
-def as_rows(x, device) -> DeviceRows | HostRows | None:
-    """A store for a matrix kept as a tensor (on its device) or as a host
-    uint16 array (served to `device`); None and stores pass through."""
+class ShardedRows(_Rows):
+    """A limb matrix kept column-sharded over a mesh: ``data`` is the list of
+    its column blocks, (n_rows, width_k, L) int32 tensors in column order,
+    each on its own device (a device may hold several).  Each column is read
+    from the block that holds it, and the collapse runs block by block."""
+
+    def __init__(self, blocks: list[torch.Tensor]):
+        if not blocks or len({(b.shape[0], b.shape[2]) for b in blocks}) != 1:
+            raise ValueError("column blocks must share their row count and limb width")
+        self.data = list(blocks)
+        self.device = blocks[0].device
+        self.starts = np.cumsum([0] + [b.shape[1] for b in blocks])
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        n_rows, _, L = self.data[0].shape
+        return (n_rows, int(self.starts[-1]), L)
+
+    def gather(self, cols: list[int]) -> np.ndarray:
+        """(n_rows, k, L) uint32 limbs of the given columns, each read from
+        its block on its device."""
+        cols = np.asarray(cols, np.int64)
+        n_rows, width, L = self.shape
+        if cols.size and not (0 <= cols.min() and cols.max() < width):
+            raise IndexError(f"column outside [0, {width})")
+        out = np.empty((n_rows, len(cols), L), np.uint32)
+        which = np.searchsorted(self.starts, cols, side="right") - 1
+        for k in np.unique(which):
+            sel = np.flatnonzero(which == k)
+            block = self.data[k]
+            idx = torch.from_numpy(cols[sel] - self.starts[k]).to(block.device)
+            out[:, sel] = block[:, idx].cpu().numpy()
+        return out
+
+    def collapse(self, t: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+        """(T, n_per_row, L) int32 collapse of the tensors `t` against these
+        column-sharded coefficients, on t's device: K3 a block, on its
+        device, the outputs concatenated."""
+        return torch.cat([collapse(b, t.to(b.device), spec).to(t.device) for b in self.data],
+                         dim=1)
+
+
+def as_rows(x, device) -> DeviceRows | HostRows | ShardedRows | None:
+    """A store for a matrix kept as a tensor (on its device), as a host
+    uint16 array (served to `device`) or as a list of column blocks (on
+    their devices); None and stores pass through."""
     if x is None or isinstance(x, _Rows):
         return x
     if isinstance(x, np.ndarray):
         return HostRows(x, device)
+    if isinstance(x, (list, tuple)):
+        return ShardedRows(x)
     return DeviceRows(x)

@@ -86,6 +86,8 @@ def native():
     lib.pos_matgen_walk.restype = ctypes.c_int64
     lib.pos_mont_redc_limbs.argtypes = [u64p, ctypes.c_int64, ctypes.c_int32, u64p,
                                         ctypes.c_uint64, ctypes.c_int32, u32p]
+    lib.pos_blake2b_many.argtypes = [u8p, ctypes.c_size_t, ctypes.c_size_t, u8p]
+    lib.pos_merkle_layers.argtypes = [u8p, ctypes.c_int64]
     _lib = lib
     return _lib
 
@@ -139,6 +141,35 @@ def blake3_native(data: bytes) -> bytes | None:
     out = (ctypes.c_uint8 * 32)()
     lib.pos_blake3(data, len(data), out)
     return bytes(out)
+
+
+def blake2b_many_native(msgs) -> np.ndarray | None:
+    """BLAKE2b-256 (``hashlib.blake2b(digest_size=32)``) of n equal-length
+    messages, (n, msg_len) uint8 -> (n, 32) uint8 digests in one call,
+    OpenMP across the messages; None without the library."""
+    lib = native()
+    if lib is None:
+        return None
+    msgs = np.ascontiguousarray(msgs, dtype=np.uint8)
+    n, msg_len = msgs.shape
+    out = np.empty((n, 32), np.uint8)
+    lib.pos_blake2b_many(msgs.ctypes.data_as(u8p), n, msg_len, out.ctypes.data_as(u8p))
+    return out
+
+
+def blake2b_merkle_layers_native(nodes: np.ndarray) -> bool:
+    """Fill the BLAKE2b-256 layers of a (2 np2 - 1, 32) uint8 Merkle array in
+    place from its np2 leaves; False without the library."""
+    lib = native()
+    if lib is None:
+        return False
+    np2 = (nodes.shape[0] + 1) // 2
+    if (nodes.dtype != np.uint8 or not nodes.flags.c_contiguous
+            or nodes.shape != (2 * np2 - 1, 32) or np2 & (np2 - 1)):
+        raise ValueError(f"blake2b_merkle_layers_native: not a Merkle array: "
+                         f"{nodes.shape} {nodes.dtype}")
+    lib.pos_merkle_layers(nodes.ctypes.data_as(u8p), np2)
+    return True
 
 
 def fold_paths_native(leaves, sibs, cols) -> np.ndarray | None:

@@ -2,8 +2,9 @@
 //
 // A copy of the JAX package's native/posnative.cc cut to the entry points
 // the port calls: Blake3 of byte strings and the verifier's Merkle path
-// folds, ChaCha keystream blocks, Keccak-f[1600] and the STROBE-128 duplex
-// under the merlin transcript, and the Brakedown matgen walk with its
+// folds, BLAKE2b-256 of byte strings and the Merkle layers of either digest
+// (the generic-digest commit), ChaCha keystream blocks, Keccak-f[1600] and
+// the STROBE-128 duplex under the merlin transcript, and the Brakedown matgen walk with its
 // Montgomery-to-limbs conversion.  Each function keeps the reference's
 // semantics bit for bit; the Python modules that call it keep a pure-Python
 // fallback for machines without a C++ compiler.
@@ -189,6 +190,107 @@ void pos_fold_paths(const uint8_t* leaves, const uint8_t* sibs,
       c >>= 1;
     }
     memcpy(out + 32 * i, h, 32);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// BLAKE2b-256 (RFC 7693) — the reference's alternate digest type parameter
+// (LcCommit<Blake2b, E>; doc/benchmark-results/sdig-ligero-isz-
+// microbenchmarks ran commit_Ft255_Blake2b_16).  Batch form feeds the
+// generic-digest commit path (crypto/digest.py hash_many).
+// ---------------------------------------------------------------------------
+
+static const uint64_t B2B_IV[8] = {
+    0x6A09E667F3BCC908ull, 0xBB67AE8584CAA73Bull, 0x3C6EF372FE94F82Bull,
+    0xA54FF53A5F1D36F1ull, 0x510E527FADE682D1ull, 0x9B05688C2B3E6C1Full,
+    0x1F83D9ABFB41BD6Bull, 0x5BE0CD19137E2179ull};
+
+static const uint8_t B2B_SIGMA[12][16] = {
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15},
+    {14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3},
+    {11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4},
+    {7, 9, 3, 1, 13, 12, 11, 14, 2, 6, 5, 10, 4, 0, 15, 8},
+    {9, 0, 5, 7, 2, 4, 10, 15, 14, 1, 11, 12, 6, 8, 3, 13},
+    {2, 12, 6, 10, 0, 11, 8, 3, 4, 13, 7, 5, 15, 14, 1, 9},
+    {12, 5, 1, 15, 14, 13, 4, 10, 0, 7, 6, 3, 9, 2, 8, 11},
+    {13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10},
+    {6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5},
+    {10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15},
+    {14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3}};
+
+static inline uint64_t b2b_rotr(uint64_t x, int n) {
+  return (x >> n) | (x << (64 - n));
+}
+
+static void b2b_compress(uint64_t h[8], const uint8_t* block, uint64_t t,
+                         int last) {
+  uint64_t m[16], v[16];
+  memcpy(m, block, 128);
+  for (int i = 0; i < 8; i++) v[i] = h[i];
+  for (int i = 0; i < 8; i++) v[8 + i] = B2B_IV[i];
+  v[12] ^= t;            // low counter word (messages < 2^64 bytes)
+  if (last) v[14] = ~v[14];
+  for (int r = 0; r < 12; r++) {
+    const uint8_t* s = B2B_SIGMA[r];
+#define B2B_G(a, b, c, d, x, y)                        \
+  v[a] = v[a] + v[b] + (x); v[d] = b2b_rotr(v[d] ^ v[a], 32); \
+  v[c] = v[c] + v[d];       v[b] = b2b_rotr(v[b] ^ v[c], 24); \
+  v[a] = v[a] + v[b] + (y); v[d] = b2b_rotr(v[d] ^ v[a], 16); \
+  v[c] = v[c] + v[d];       v[b] = b2b_rotr(v[b] ^ v[c], 63);
+    B2B_G(0, 4, 8, 12, m[s[0]], m[s[1]])
+    B2B_G(1, 5, 9, 13, m[s[2]], m[s[3]])
+    B2B_G(2, 6, 10, 14, m[s[4]], m[s[5]])
+    B2B_G(3, 7, 11, 15, m[s[6]], m[s[7]])
+    B2B_G(0, 5, 10, 15, m[s[8]], m[s[9]])
+    B2B_G(1, 6, 11, 12, m[s[10]], m[s[11]])
+    B2B_G(2, 7, 8, 13, m[s[12]], m[s[13]])
+    B2B_G(3, 4, 9, 14, m[s[14]], m[s[15]])
+#undef B2B_G
+  }
+  for (int i = 0; i < 8; i++) h[i] ^= v[i] ^ v[8 + i];
+}
+
+// BLAKE2b with 32-byte output, no key (== hashlib.blake2b(digest_size=32)).
+void pos_blake2b_256(const uint8_t* data, size_t len, uint8_t out[32]) {
+  uint64_t h[8];
+  for (int i = 0; i < 8; i++) h[i] = B2B_IV[i];
+  h[0] ^= 0x01010000ull ^ 32;          // param block: digest_len=32, fanout=depth=1
+  size_t off = 0;
+  while (len - off > 128) {
+    b2b_compress(h, data + off, (uint64_t)(off + 128), 0);
+    off += 128;
+  }
+  uint8_t last[128];
+  size_t rem = len - off;              // 0 < rem <= 128 unless len == 0
+  memset(last, 0, 128);
+  if (len) memcpy(last, data + off, rem);
+  b2b_compress(h, last, (uint64_t)len, 1);
+  memcpy(out, h, 32);
+}
+
+void pos_blake2b_many(const uint8_t* data, size_t n_msgs, size_t msg_len,
+                      uint8_t* out) {
+#pragma omp parallel for schedule(static) if (n_msgs > 16)
+  for (size_t i = 0; i < n_msgs; i++) {
+    pos_blake2b_256(data + i * msg_len, msg_len, out + 32 * i);
+  }
+}
+
+// Merkle layers of BLAKE2b-256, in place: nodes is the (2*np2 - 1, 32)
+// Merkle array of core/commit.py with its np2 leaves (zero digests past
+// n_cols) filled; each layer's parents H(left || right) follow the layer
+// below, the root last (lcpc-2d/src/lib.rs:685-694, 777-815).  OpenMP
+// across the parents of a layer.
+void pos_merkle_layers(uint8_t* nodes, int64_t np2) {
+  uint8_t* layer = nodes;
+  for (int64_t width = np2; width > 1; width /= 2) {
+    uint8_t* parents = layer + 32 * width;
+#pragma omp parallel for schedule(static) if (width > 512)
+    for (int64_t i = 0; i < width / 2; i++) {
+      pos_blake2b_256(layer + 64 * i, 64, parents + 32 * i);
+    }
+    layer = parents;
   }
 }
 

@@ -11,7 +11,9 @@ oracle's tables.  Each sparse level is transposed into row-gather form
 (:class:`GatherMat`), and the encode is one mat-vec per level: kernel K5
 (``csrc/expander.cu``) on CUDA, :func:`gather_matvec_plain` on the CPU.  The
 Reed-Solomon base case (encode.rs:97-110, Vandermonde at points 1, 2, 3,
-...) and the concatenations are plain torch ops.
+...) and the concatenations are plain torch ops.  Over a mesh
+(``parallel/mesh.py``), :meth:`ExpanderEncoder.encode_wide` shards every
+level by its output rows (:meth:`ExpanderEncoder.wide_operands`).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from .. import native
 from ..crypto.chacha import ChaChaRng, UniformUsize, seed_from_u64
 from ..fields.field import FieldSpec, ints_to_limbs
 from ..fields.limb import limb_field
+from ..parallel.mesh import Mesh, all_gather, shard_slices
 
 # --------------------------------------------------------------------------
 # code specifications (codespec.rs)
@@ -581,6 +584,20 @@ class GatherTables(torch.nn.Module):
         return self.idx.shape[0]
 
 
+def natural_gather_mat(tab: GatherTables) -> GatherMat:
+    """The level's row-gather form back in its natural row order (undoing
+    the tables' sort by slot count), as host numpy arrays."""
+    order = tab.order.cpu().numpy().astype(np.int64)
+    words = tab.vals.cpu().numpy().view(np.uint32).transpose(0, 2, 1)     # (K, rows, W)
+    limbs = np.empty(words.shape[:2] + (2 * words.shape[2],), np.uint32)
+    limbs[..., 0::2], limbs[..., 1::2] = words & 0xFFFF, words >> 16
+    idx = np.empty(tuple(tab.idx.shape), np.int32)
+    vals = np.empty_like(limbs)
+    idx[:, order] = tab.idx.cpu().numpy()
+    vals[:, order] = limbs
+    return GatherMat(rows=tab.rows, cols=tab.cols, idx=idx, vals=vals)
+
+
 def _word_limbs(words: torch.Tensor) -> torch.Tensor:
     """(..., W) int32 words -> (..., 2W) int64 16-bit limbs."""
     w = words.to(torch.int64) & 0xFFFFFFFF
@@ -708,3 +725,76 @@ class ExpanderEncoder(torch.nn.Module):
         out = torch.cat(parts, dim=1)
         assert out.shape[1] == self.codeword_len
         return out
+
+    # The expander's per-level gather graph (encode.rs:36-110) is sharded over
+    # the mesh by output rows, as in the JAX package: shard k computes block k
+    # of each level's output rows from the level's whole input, and the blocks
+    # are all-gathered into the next level's input.  The graphs are seeded
+    # uniform with ~7-10 inputs an output column, so a block of output rows
+    # reads most of the input rows anyway: exact halos would move about as
+    # much as the all-gather does.
+
+    def wide_operands(self, mesh: Mesh) -> dict[str, list[list[GatherTables]]]:
+        """Each level's tables cut into the mesh's blocks of output rows, in
+        the level's natural row order (:func:`natural_gather_mat`; each block
+        then sorted by slot count on its own) and put on the block's device:
+        ``{"pre": [[block k of level i, ...], ...], "post": [...]}``.
+        Blocks of :func:`parallel.mesh.shard_slices`: the last ones may be
+        shorter or empty.  Kept for the last mesh asked for."""
+        cached = getattr(self, "_wide_operands", None)
+        if cached is not None and cached[0] == mesh.devices:
+            return cached[1]
+
+        def split(tab: GatherTables) -> list[GatherTables]:
+            gm = natural_gather_mat(tab)
+            return [GatherTables(GatherMat(rows=s.stop - s.start, cols=gm.cols,
+                                           idx=gm.idx[:, s], vals=gm.vals[:, s])).to(dev)
+                    for s, dev in zip(shard_slices(gm.rows, mesh.size), mesh.devices)]
+
+        ops = {"pre": [split(t) for t in self.pre], "post": [split(t) for t in self.post]}
+        self._wide_operands = (mesh.devices, ops)
+        return ops
+
+    def encode_wide(self, blocks: list[torch.Tensor], mesh: Mesh, matvec=None
+                    ) -> list[torch.Tensor]:
+        """:meth:`encode` over the mesh.  `blocks`: the D column blocks of
+        (b, w, L) int32 rows, block k on ``mesh.devices[k]``, with the
+        coefficients in the first n_per_row columns (w >= n_per_row; the
+        rest is ignored).  Returns the D column blocks of the codewords,
+        zero-padded to ncp = codeword_len rounded up to a multiple of D, ncp/D
+        columns each.  Each level runs `matvec` (default
+        :func:`gather_matvec`, K5 on CUDA) on every shard's block of rows;
+        the RS base case and the concatenations run once a device."""
+        matvec = matvec or gather_matvec
+        ops = self.wide_operands(mesh)
+        lf = limb_field(self.field)
+        D = mesh.size
+        b, _, L = blocks[0].shape
+
+        def level(tabs, inputs):
+            ys = [matvec(tab, inputs[dev], self.field) for tab, dev in zip(tabs, mesh.devices)]
+            return dict(zip(mesh.devices, all_gather(ys, mesh, 1)))
+
+        x = dict(zip(mesh.devices, all_gather(blocks, mesh, 1)))
+        x = {dev: v[:, :self.n_per_row].contiguous() for dev, v in x.items()}
+        nl = len(self.pre)
+        parts = [x]                              # parts[i] = input to level i, a device
+        cur = x
+        for i in range(nl - 1):
+            cur = level(ops["pre"][i], cur)
+            parts.append(cur)
+        temp = level(ops["pre"][nl - 1], cur)
+        parts.append({dev: lf.dot(self.on(dev).vander[None], t[:, None], axis=-2)
+                      .to(torch.int32) for dev, t in temp.items()})
+        for i in range(nl - 1, -1, -1):
+            zin = {dev: torch.cat([p[dev] for p in parts[i + 1:]], dim=1) for dev in x}
+            parts.append(level(ops["post"][i], zin))
+        out = {dev: torch.cat([p[dev] for p in parts], dim=1) for dev in x}
+        c = -(-self.codeword_len // D)
+        shards = []
+        for k, dev in enumerate(mesh.devices):
+            block = torch.zeros((b, c, L), dtype=torch.int32, device=dev)
+            take = max(0, min(c, self.codeword_len - k * c))
+            block[:, :take] = out[dev][:, k * c:k * c + take]
+            shards.append(block)
+        return shards

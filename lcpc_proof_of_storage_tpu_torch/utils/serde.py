@@ -1,10 +1,10 @@
-"""Binary + JSON serialization of proof objects.
+"""Binary + JSON serialization of proof and commitment objects.
 
-A copy of the JAX package's ``utils/serde.py`` for the port's proof types
-(``core/commit.py``), without the commitment serde.  It mirrors the reference's serde wrappers (lcpc-2d/src/lib.rs:193-283,
-376-420, 455-512, 559-638: WrappedLcCommit/WrappedOutput/WrappedLcColumn/
-WrappedLcEvalProof) in the bincode-1 fixed-int layout the reference uses on
-the wire (bincode 1.3: u64 little-endian lengths, fields in declaration
+A copy of the JAX package's ``utils/serde.py`` for the port's proof and
+commitment types (``core/commit.py``).  It mirrors the reference's serde
+wrappers (lcpc-2d/src/lib.rs:193-283, 376-420, 455-512, 559-638:
+WrappedLcCommit/WrappedOutput/WrappedLcColumn/WrappedLcEvalProof) in the
+bincode-1 fixed-int layout the reference uses on the wire (bincode 1.3: u64 little-endian lengths, fields in declaration
 order, fixed-size arrays without length prefixes).
 
 Field elements serialize as the reference's `[u64; limbs]` inner array.
@@ -20,8 +20,9 @@ import json
 
 import numpy as np
 
-from ..core.commit import LcColumn, LcEvalProof, _LimbRow
-from ..fields.field import FieldSpec, limbs_to_ints
+from ..core.commit import LcColumn, LcCommit, LcEvalProof, _LimbRow, default_device
+from ..fields.field import FieldSpec, ints_to_limbs, limbs_to_ints
+from ..ops.blake3 import bytes_to_digest, digests_to_bytes
 
 
 # -- primitives -------------------------------------------------------------
@@ -99,6 +100,17 @@ def _write_field_vec_limbs(buf: io.BytesIO, vals: list[int], spec: FieldSpec,
 
 
 # -- proof objects ----------------------------------------------------------
+
+def serialize_root(root: bytes) -> bytes:
+    """WrappedOutput { bytes } (lcpc-2d/src/lib.rs:376-420)."""
+    buf = io.BytesIO()
+    write_bytes(buf, root)
+    return buf.getvalue()
+
+
+def deserialize_root(data: bytes) -> bytes:
+    return read_bytes(io.BytesIO(data))
+
 
 def serialize_column(column, spec: FieldSpec) -> bytes:
     buf = io.BytesIO()
@@ -277,6 +289,62 @@ def deserialize_proof(data: bytes, spec: FieldSpec):
                 c._sibs = proof._paths_packed
                 c._sibi = i
     return proof
+
+
+def _write_limb_matrix(buf: io.BytesIO, store, width: int, spec: FieldSpec) -> None:
+    """The first `width` columns of a commitment's limb matrix, row-major, as
+    one field vector (a wide Brakedown matrix keeps zero columns past
+    n_cols, which the one-device commitment does not have)."""
+    limbs = store.gather(range(width)).reshape(-1, spec.num_limbs16)
+    if _limb_wire_width_ok(spec):
+        write_u64(buf, limbs.shape[0])
+        buf.write(np.ascontiguousarray(limbs.astype("<u2")).tobytes())
+    else:
+        write_field_vec(buf, limbs_to_ints(limbs), spec)
+
+
+def serialize_commit(comm: LcCommit, spec: FieldSpec) -> bytes:
+    """WrappedLcCommit layout: comm, coeffs, n_rows, n_cols, n_per_row,
+    hashes (lcpc-2d/src/lib.rs:193-204), the matrices read from wherever the
+    commitment keeps them (``core/storage.py``)."""
+    if comm.comm_rows is None or comm.coeff_rows is None:
+        raise ValueError("serialize_commit: the commitment keeps no encoded matrix or no "
+                         "coefficients")
+    buf = io.BytesIO()
+    _write_limb_matrix(buf, comm.comm_rows, comm.n_cols, spec)
+    _write_limb_matrix(buf, comm.coeff_rows, comm.n_per_row, spec)
+    write_u64(buf, comm.n_rows)
+    write_u64(buf, comm.n_cols)
+    write_u64(buf, comm.n_per_row)
+    hashes = digests_to_bytes(comm.hashes)
+    write_u64(buf, len(hashes))
+    for h in hashes:
+        write_bytes(buf, h)
+    return buf.getvalue()
+
+
+def deserialize_commit(data: bytes, spec: FieldSpec, device=None) -> LcCommit:
+    """The commitment of :func:`serialize_commit`, its matrices as int32
+    limbs and its Merkle array on `device` (default: :func:`default_device`,
+    the current CUDA card; ``device="cpu"`` for the host)."""
+    import torch
+    device = default_device(device)
+    buf = io.BytesIO(data)
+    comm_vals, comm_limbs = _read_field_vec_limbs(buf, spec)
+    coeff_vals, coeff_limbs = _read_field_vec_limbs(buf, spec)
+    n_rows = read_u64(buf)
+    n_cols = read_u64(buf)
+    n_per_row = read_u64(buf)
+    hashes = torch.stack([bytes_to_digest(read_bytes(buf)) for _ in range(read_u64(buf))])
+
+    def matrix(vals, limbs, width):
+        if limbs is None:
+            limbs = ints_to_limbs(vals, spec)
+        return torch.from_numpy(np.asarray(limbs, np.int32).reshape(n_rows, width, -1)).to(device)
+
+    return LcCommit(coeffs=matrix(coeff_vals, coeff_limbs, n_per_row),
+                    comm=matrix(comm_vals, comm_limbs, n_cols), n_rows=n_rows,
+                    n_cols=n_cols, n_per_row=n_per_row, hashes=hashes.to(device))
 
 
 # -- JSON variants (networking wire format) ---------------------------------
