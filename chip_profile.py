@@ -9,8 +9,11 @@ It commits 2^20 ft255 coefficients (Ligero rho=1/4, as chip_smoke.py's
 main path), then times commit, prove and verify RUNS times each after two
 warm-ups (synchronised wall clock; every run is printed, then the median,
 min and max), and profiles one more call of each: device kernel time and
-busy share from torch.profiler, the host's hottest functions from cProfile
-(which inflates host time).  The last line is a JSON summary.
+busy share from torch.profiler (``utils/profiling.py kernel_events``), the
+host's hottest functions from cProfile (which inflates host time).  With
+LCPC_TRACE_DIR set, one more call of each is traced into
+``$LCPC_TRACE_DIR/chip_profile_<step>/`` as a Chrome trace
+(``utils/profiling.py trace``).  The last line is a JSON summary.
 
 The port imports nothing of the JAX package, so the process runs with
 glibc malloc's defaults: the reference's allocator tuning (its package
@@ -37,11 +40,11 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import card_line, random_limbs
     from lcpc_proof_of_storage_tpu_torch import LigeroEncoding, Transcript, commit, prove, verify
     from lcpc_proof_of_storage_tpu_torch.fields import FT255
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import kernel_events, trace
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -70,7 +73,6 @@ def main() -> int:
     steps = {"commit": lambda: commit(coeffs, enc, device=dev),
              "prove": lambda: prove(comm, outer, enc, tr()),
              "verify": lambda: verify(root, outer, inner, proof, enc, tr(), device=dev)}
-    cuda = torch.autograd.DeviceType.CUDA
     summary = {"card": card, "steps": {}}
     for name, fn in steps.items():
         for _ in range(2):
@@ -87,10 +89,7 @@ def main() -> int:
               f"max {max(walls):.3f} over {RUNS} runs: "
               + " ".join(f"{w:.3f}" for w in walls), flush=True)
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if e.device_type == cuda]
+        kern = kernel_events(fn, runs=1)
         dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
         n_kern = sum(e.count for e in kern)
         print(f"   device: {dev_ms:.3f} ms in {n_kern} kernels, busy {dev_ms / med:.1%} of "
@@ -110,6 +109,9 @@ def main() -> int:
         for (fname, line, func), (_, ncalls, tt, _, _) in top:
             print(f"     {tt * 1e3:8.3f} ms  x{ncalls:<6d} {Path(fname).name}:{line} {func}",
                   flush=True)
+        with trace(f"chip_profile_{name}"):
+            fn()
+
         summary["steps"][name] = {"wall_ms": walls, "median_ms": med, "device_ms": dev_ms,
                                   "kernels": n_kern, "busy": dev_ms / med}
     print(json.dumps(summary), flush=True)

@@ -52,7 +52,10 @@ and K1 at the PoS sizes; the
 proof-of-storage lifecycle (an in-process server and client on the card)
 on a 16 MiB file against the CPU writer's files, and on a 1 GiB file
 (chunked upload, proof, evaluation, row, edit, append, a corrupted
-.porenc) with a 256 MiB whole upload and download; the generic host
+.porenc) with a 256 MiB whole upload and download, and on the 16 MiB
+file's copy the row and column API (a row replaced by its bytes, the
+recalculated tree against a fresh writer's and the one-shot commit's, the
+handler's digests and the retrieved columns against it); the generic host
 digest (phase digest: commit, prove and verify with Blake2b at Ligero
 2^20 and Brakedown 2^21, the root against hashlib.blake2b over the Blake3
 commit's encoded matrix, the host legs timed); the multi-device paths
@@ -61,7 +64,12 @@ full-width points on meshes of 3, 4 and 8 shards on one card, plus one
 shard a card where there are several: roots and proof bytes against the
 one-device path's, each kernel a shard launches held against its plain
 version on that shard's inputs, launches per leg); timings, peak device
-memory and host RSS.  ``--phases digest,mesh`` runs only the phases named.
+memory and host RSS; one more prove and verify of the Ligero 2^20,
+Brakedown 2^25 and streamed Ligero 2^29 paths with LCPC_PROFILE_PROTO=1,
+each leg's ms from the phase spans of utils/profiling.py (failing where the
+legs cover less than 90% of a call).  Every bound and timer is
+utils/profiling.py's (KernelCost.bound_ms, bench_kernel, wall_ms,
+device_ms).  ``--phases digest,mesh`` runs only the phases named.
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and fails if a Merkle array took more than two tree
 launches.  ntt_tile_kernels, not a phase, times KT and KM at the routes'
@@ -76,7 +84,6 @@ from __future__ import annotations
 
 import hashlib
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -86,7 +93,6 @@ ROOT = Path(__file__).resolve().parent
 LOG2_MAIN = 20
 N_POINTS = 3
 N_TIMED = 3
-N_EVENTS = 20
 SEED = 20261016
 BD_LOG2 = 21
 BD_POINTS = 2
@@ -100,17 +106,6 @@ ST_DIMS = (2048, 262144, 1048576)
 ST_LOG2_DEVICE = 28       # 16-bit coefficients and encoded matrix on the card
 ST_LOG2_MODES = 25        # every keep_comm x device_coeffs mode against the one-shot path
 ST_MODES_BATCH = 100      # rows a batch: does not divide the 512 rows at 2^25
-# the least time the card could take: bytes over its memory rate, 32-bit
-# integer operations over its peak integer rate.  NVIDIA H100 SXM data sheet
-# (700 W): 3.35 TB/s, and 67 T float32 operations/s outside the tensor cores
-# from 128 FP32 lanes an SM; the Hopper architecture whitepaper gives an SM
-# 64 INT32 lanes, half as many, so 33.5 T 32-bit integer operations/s with a
-# multiply-add counted as two.  Every kernel's operations are counted in
-# 32-bit words: a product of two W-word field elements is W^2 multiply-adds
-# (2 W^2 operations), whatever digit width the kernel itself multiplies in.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 33.5e12
-BLAKE3_OPS = 800          # 32-bit adds, xors, rotates of one compression
 
 
 def say(msg: str) -> None:
@@ -172,33 +167,6 @@ class Results:
             self.launches.setdefault(name, {})[path] = n
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(ms, what bounds it): the larger of bytes / memory rate and
-    operations / peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def dit_ops(count: int, s0: int, s1: int, W: int) -> int:
-    """Operations of the radix-2 DIT stages s0 .. s1-1 on `count` values in
-    runs of at least 2^s1: a butterfly is a modular add and subtract (~8 W
-    operations) and, unless its twiddle is 1, one Montgomery product of
-    W-word values (2 W^2 multiply-adds, ~4 W^2 operations).  At stage s one
-    butterfly in 2^s has the twiddle 1: all of stage 0, half of stage 1."""
-    half = count // 2
-    return sum(half * 8 * W + (half - (count >> (s + 1))) * 4 * W * W for s in range(s0, s1))
-
-
-def ntt_bound(batch: int, n: int, L: int, stages: int, scale: bool = False):
-    """K1 / K4 bound: the limbs read once and written once; the last `stages`
-    DIT stages of a 2^log_n transform (dit_ops; the stages pruned by a zero
-    tail are the first ones); the inverse's scale one more product an
-    element."""
-    W, log_n = L // 2, n.bit_length() - 1
-    ops = dit_ops(batch * n, log_n - stages, log_n, W) + (batch * n * 4 * W * W if scale else 0)
-    return bound(2 * batch * n * L * 4, ops)
-
-
 def plan_text(n: int) -> str:
     """K1's and K4's pass plan at n, as ops/ntt.py ntt_pass_plan gives it."""
     from lcpc_proof_of_storage_tpu_torch.ops import ntt
@@ -207,80 +175,20 @@ def plan_text(n: int) -> str:
             + " ".join(f"{lo}..{hi - 1}" for lo, hi in plan))
 
 
-def cuda_ms(fn, runs: int = N_TIMED) -> float:
-    """Median wall milliseconds of fn() over `runs` synchronised runs after
-    one warm-up (for host-and-device steps)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def event_ms(fn, runs: int = N_EVENTS) -> float:
-    """Mean device milliseconds of fn() over `runs` back-to-back runs between
-    two CUDA events, after one warm-up."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / runs
-
-
-def device_ms(fn, runs: int = N_EVENTS) -> tuple[float, float]:
-    """(device milliseconds, kernels) a call of fn(): the kernel events
-    torch.profiler records over `runs` calls after one warm-up."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in kern) / 1e3 / runs,
-            sum(e.count for e in kern) / runs)
-
-
 def timed_pair(res: Results, name: str, kern, plain, shape: str, card: str,
                plain_runs: int = 2) -> None:
     """Kernel and plain version in turns (plain, kernel, kernel, plain), CUDA
     event times."""
-    p1 = event_ms(plain, plain_runs)
-    k1 = event_ms(kern)
-    k2 = event_ms(kern)
-    p2 = event_ms(plain, plain_runs)
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import bench_kernel
+    p1 = bench_kernel(plain, plain_runs)
+    k1 = bench_kernel(kern)
+    k2 = bench_kernel(kern)
+    p2 = bench_kernel(plain, plain_runs)
     res.ms[name] = min(k1, k2)
     res.plain_ms[name] = min(p1, p2)
     b, by = res.bound[name]
     say(f"time [{card}]: {name} {shape}: kernel {k1:.4f}/{k2:.4f} ms, plain "
         f"{p1:.3f}/{p2:.3f} ms, bound {b:.4f} ms ({by})")
-
-
-def leaves_bound(n_rows: int, n_cols: int, spec) -> tuple[float, str]:
-    """K2 leaves: the limbs read once, the digests written once; a compression
-    a 64-byte block of each column message and a parent a chunk but one."""
-    msg = 32 + n_rows * spec.repr_bytes
-    return bound(n_rows * n_cols * spec.num_limbs16 * 4 + n_cols * 32,
-                 n_cols * (-(-msg // 64) + -(-msg // 1024) - 1) * BLAKE3_OPS)
-
-
-def tree_bound(np2: int) -> tuple[float, str]:
-    """K2 tree: the np2 leaves read once, the np2 - 1 parents written once,
-    a compression each."""
-    return bound((2 * np2 - 1) * 32, (np2 - 1) * BLAKE3_OPS)
 
 
 def tree_of(leaves):
@@ -325,6 +233,51 @@ def launches_of(run) -> dict[str, int]:
 # --------------------------------------------------------------------------
 # kernels against their plain versions
 # --------------------------------------------------------------------------
+
+def leg_report(card: str, what: str, spec, blob: bytes, prove_fn, verify_fn) -> int:
+    """One more prove (prove_fn()) and verify (verify_fn(proof)) of a path
+    with LCPC_PROFILE_PROTO=1, which ends each device leg with a sync: each
+    leg's ms from the phase spans of utils/profiling.py, and the legs' sum
+    against the call's synchronised wall time.  Fails where the proof's
+    bytes differ from `blob` or the legs cover less than 90% of a call.
+    Returns the evaluation verify gives."""
+    import os
+    import torch
+    from lcpc_proof_of_storage_tpu_torch import serialize_proof
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import GLOBAL_PHASES
+
+    out = {}
+    before_env = os.environ.get("LCPC_PROFILE_PROTO")
+    os.environ["LCPC_PROFILE_PROTO"] = "1"
+    try:
+        for actor, run in (("prove", lambda: out.__setitem__("proof", prove_fn())),
+                           ("verify", lambda: out.__setitem__("value",
+                                                              verify_fn(out["proof"])))):
+            before = {k: v for k, v in GLOBAL_PHASES.totals.items() if k[0] == actor}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            legs = {b: (t - before.get((a, b), 0.0)) * 1e3
+                    for (a, b), t in GLOBAL_PHASES.totals.items() if a == actor}
+            legs = {b: ms for b, ms in legs.items() if ms > 0}
+            share = sum(legs.values()) / wall
+            say(f"legs [{card}]: {what} {actor} (LCPC_PROFILE_PROTO=1): "
+                + ", ".join(f"{b} {ms:.3f}" for b, ms in legs.items())
+                + f" ms; the legs {sum(legs.values()):.3f} of {wall:.3f} ms wall ({share:.1%})")
+            if share < 0.9:
+                raise AssertionError(f"{what} {actor}: the phase spans cover {share:.1%} of the "
+                                     f"call")
+    finally:
+        if before_env is None:
+            del os.environ["LCPC_PROFILE_PROTO"]
+        else:
+            os.environ["LCPC_PROFILE_PROTO"] = before_env
+    if serialize_proof(out["proof"], spec) != blob:
+        raise AssertionError(f"{what}: the proof under LCPC_PROFILE_PROTO=1 differs")
+    return out["value"]
+
 
 def check_kernels(res: Results, dev) -> None:
     """K1, K2 and K3 against their plain versions on the card, bit-exact."""
@@ -461,29 +414,6 @@ def check_expander(res: Results, dev) -> None:
 # the NTT routes: KT (ntt_tile) and KM (mul_mod)
 # --------------------------------------------------------------------------
 
-def tile_bound(count: int, L: int, s0: int, s1: int, in_limbs: bool, out_limbs: bool,
-               n_diag: int = 0, diag_ones: int = 0) -> tuple[float, str]:
-    """KT's bound: its values read once and written once (16-bit limbs as int32
-    or W words each), the diagonal twiddles of one row (n_diag values, of
-    which diag_ones are 1) read once; the stages s0 .. s1-1 (dit_ops), the
-    prologue one Montgomery product (4 W^2) a value whose twiddle is not 1."""
-    W = L // 2
-    nbytes = count * 4 * ((L if in_limbs else W) + (L if out_limbs else W)) + n_diag * W * 4
-    ops = dit_ops(count, s0, s1, W)
-    if n_diag:
-        ops += (count - count // n_diag * diag_ones) * 4 * W * W
-    return bound(nbytes, ops)
-
-
-def mul_mod_bound(n: int, b_rows: int, L: int) -> tuple[float, str]:
-    """KM's bound: a, b and out once; a Montgomery product (4 W^2 operations)
-    a value by one broadcast row in Montgomery form (and one to form it),
-    two a value otherwise."""
-    W = L // 2
-    ops = (n + 1) * 4 * W * W if b_rows == 1 else n * 8 * W * W
-    return bound((2 * n + b_rows) * L * 4, ops)
-
-
 def check_ntt_route_kernels(res: Results, dev) -> None:
     """KT against ntt_tile_stages_plain and KM against mul_mod_plain on five
     fields, bit-exact: KT on every sub-length 2 .. 1024 with and without the
@@ -606,6 +536,7 @@ def time_mul_mod_rows(res: Results, dev, card: str) -> None:
     import torch
     from lcpc_proof_of_storage_tpu_torch.fields import FT255
     from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import bench_kernel, modmul_cost
 
     spec, n = FT255, 100_003
     L = spec.num_limbs16
@@ -613,9 +544,9 @@ def time_mul_mod_rows(res: Results, dev, card: str) -> None:
     a, b = (torch.from_numpy(random_limbs(rng, (n,), spec)).to(dev) for _ in range(2))
     res.compare("mul_mod", f"{spec.name} N={n} b_rows={n}", ntt.mul_mod(a, b, spec),
                 ntt.mul_mod_plain(a, b, spec), quiet=True)
-    k = [event_ms(lambda: ntt.mul_mod(a, b, spec)) for _ in range(2)]
-    p_ms = event_ms(lambda: ntt.mul_mod_plain(a, b, spec), 2)
-    bd, by = mul_mod_bound(n, n, L)
+    k = [bench_kernel(lambda: ntt.mul_mod(a, b, spec)) for _ in range(2)]
+    p_ms = bench_kernel(lambda: ntt.mul_mod_plain(a, b, spec), 2)
+    bd, by = modmul_cost(n, L, n).bound_ms()
     say(f"time [{card}]: mul_mod ({n}, {L}) x ({n}, {L}) {spec.name} (mul_mod_pallas): kernel "
         f"{k[0]:.4f}/{k[1]:.4f} ms, plain {p_ms:.3f} ms, bound {bd:.4f} ms ({by})")
 
@@ -629,40 +560,28 @@ def route_call_label(call, L: int) -> str:
             f"{' with w^-j' if call.inverse else ''} over {tuple(call.x.shape)} {io}")
 
 
-def route_call_bound(call, L: int) -> tuple[float, str]:
-    from lcpc_proof_of_storage_tpu_torch.ops import ntt
-    if isinstance(call, ntt.MulModCall):
-        return mul_mod_bound(call.a.shape[0], call.b.shape[0], L)
-    ones = 0
-    if call.diag:    # the diagonal twiddles equal to 1 (limbs 1, 0, .., 0)
-        t = call.tables.fs_tw
-        ones = int(((t[:, 0] == 1) & (t[:, 1:] == 0).all(-1)).sum())
-    return tile_bound(call.x.numel() // call.x.shape[-1], L, call.s0, call.s1,
-                      call.x.shape[-1] == L, call.out_limbs, call.tables.n if call.diag else 0,
-                      ones)
-
-
 def time_k1_passes(card: str, spec, x, nnz: int, what: str, tables) -> None:
     """K1's passes apart, CUDA-event means on words of x: the last pass alone
     (lcpc_ntt_stages from its first stage), the rest of K1 by difference; and
     K1's stages from the fused_small tile on (the route's _stage_call), beside
-    ntt_bound of those stages."""
+    ntt_cost of those stages."""
     from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import bench_kernel, ntt_cost
     batch, n, L = x.shape
     plan = ntt.ntt_pass_plan(n)
     words = ntt.pack_words(x)
-    whole = min(event_ms(lambda: ntt.ntt(x, spec, nnz, tables)) for _ in range(2))
+    whole = min(bench_kernel(lambda: ntt.ntt(x, spec, nnz, tables)) for _ in range(2))
     parts = [f"K1 {whole:.4f} ms"]
     if len(plan) > 1:
         s_last = plan[-1][0]
-        last = min(event_ms(lambda: ntt.ntt_stages(words, tables, s_last)) for _ in range(2))
-        b, by = ntt_bound(batch, n, L, n.bit_length() - 1 - s_last)
+        last = min(bench_kernel(lambda: ntt.ntt_stages(words, tables, s_last)) for _ in range(2))
+        b, by = ntt_cost(batch, n, L, n.bit_length() - 1 - s_last).bound_ms()
         parts.append(f"last pass (stages {s_last}..{n.bit_length() - 2}) alone {last:.4f} ms "
                      f"(bound {b:.4f}, {by}), the rest {whole - last:.4f} ms")
     log_t = min(ntt.FUSED_TILE, n).bit_length() - 1
     if log_t < n.bit_length() - 1:
-        st = min(event_ms(lambda: ntt.ntt_stages(words, tables, log_t)) for _ in range(2))
-        b, by = ntt_bound(batch, n, L, n.bit_length() - 1 - log_t)
+        st = min(bench_kernel(lambda: ntt.ntt_stages(words, tables, log_t)) for _ in range(2))
+        b, by = ntt_cost(batch, n, L, n.bit_length() - 1 - log_t).bound_ms()
         parts.append(f"stages {log_t}.. (fused_small's _stage_call) {st:.4f} ms, bound "
                      f"{b:.4f} ms ({by})")
     say(f"time [{card}]: K1 passes {what} ({batch}, {n}, {L}) {spec.name}: " + "; ".join(parts))
@@ -680,6 +599,7 @@ def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
     kernel line's times, each with its plain version's (in turns)."""
     import dataclasses
     from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import bench_kernel, ntt_cost
     batch, n, L = x.shape
     dev = x.device
     rows = batch if check_rows is None else check_rows
@@ -703,17 +623,17 @@ def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
                     else dataclasses.replace(call, x=call.x[:rows]))
             res.compare(name, f"{what} {route} {label}, rows 0..{rows - 1}",
                         call()[:rows * n if is_km else rows], part.plain())
-            b, by = route_call_bound(call, L)
-            k = [event_ms(call) for _ in range(2)]
+            b, by = call.cost().bound_ms()
+            k = [bench_kernel(call) for _ in range(2)]
             say(f"time [{card}]: {name} {what} {route} {label}: kernel {k[0]:.4f}/{k[1]:.4f} ms, "
                 f"bound {b:.4f} ms ({by})")
     routes = {"K1 (stages)": lambda: ntt.ntt(x, spec, nnz, fs),
               "four_step": lambda: ntt.ntt_four_step(x, spec, nnz, fs),
               "fused_small": lambda: ntt.ntt_fused_small(x, spec, nnz, fu)}
-    b, by = ntt_bound(batch, n, L, (nnz - 1).bit_length())    # the stages not pruned
-    times = {name: [event_ms(fn)] for name, fn in routes.items()}
+    b, by = ntt_cost(batch, n, L, (nnz - 1).bit_length()).bound_ms()    # the stages not pruned
+    times = {name: [bench_kernel(fn)] for name, fn in routes.items()}
     for name, fn in reversed(routes.items()):
-        times[name].append(event_ms(fn))
+        times[name].append(bench_kernel(fn))
     say(f"time [{card}]: NTT {what} ({batch}, {n}, {L}) {spec.name} n_nonzero={nnz}: "
         + ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
         + f" (in turns); bound {b:.4f} ms ({by}); K1 {plan_text(n)}")
@@ -722,7 +642,7 @@ def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
         pass_b = next(c for c in calls["four_step"] if c.diag)
         km = next(c for c in calls["fused_small inverse"] if isinstance(c, ntt.MulModCall))
         for name, call in (("ntt_tile", pass_b), ("mul_mod", km)):
-            res.bound[name] = route_call_bound(call, L)
+            res.bound[name] = call.cost().bound_ms()
             timed_pair(res, name, call, call.plain,
                        f"{what} {route_call_label(call, L)}", card, plain_runs=1)
         count, s = km.a.shape[0], res.ms["mul_mod"] / 1e3
@@ -731,9 +651,9 @@ def time_ntt_routes(res: Results, card: str, spec, x, nnz: int, what: str,
             f"{2 * count * L * 4 / s / 1e12:.3f} TB/s")
     inv = {"K4 inverse": lambda: ntt.intt(y, spec, fu),
            "fused_small inverse": lambda: ntt.ntt_fused_small(y, spec, None, fu, inverse=True)}
-    t_inv = {name: [event_ms(fn, 5)] for name, fn in inv.items()}
+    t_inv = {name: [bench_kernel(fn, 5)] for name, fn in inv.items()}
     for name, fn in reversed(inv.items()):
-        t_inv[name].append(event_ms(fn, 5))
+        t_inv[name].append(bench_kernel(fn, 5))
     say(f"time [{card}]: inverse NTT {what} ({batch}, {n}, {L}) {spec.name}: "
         + ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms" for name, ts in t_inv.items())
         + " (in turns)")
@@ -761,6 +681,7 @@ def ntt_tile_kernels(res: Results, dev, card: str) -> None:
     from lcpc_proof_of_storage_tpu_torch import LigeroEncoding, commit
     from lcpc_proof_of_storage_tpu_torch.fields import FT255
     from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import wall_ms
 
     say(f"ntt_tile_kernels: the package at {Path(ntt.__file__).parents[2]}")
     spec = FT255
@@ -780,7 +701,7 @@ def ntt_tile_kernels(res: Results, dev, card: str) -> None:
     for route in ntt.ROUTES:
         enc = LigeroEncoding.new(1 << LOG2_MAIN, spec, rho=(1, 4), ntt=route)
         roots.add(commit(coeffs, enc, device=dev).get_root().root)
-        t = [cuda_ms(lambda: commit(coeffs, enc, device=dev), runs=10) for _ in range(2)]
+        t = [wall_ms(lambda: commit(coeffs, enc, device=dev), runs=10) for _ in range(2)]
         say(f"time [{card}]: ntt_tile_kernels Ligero 2^{LOG2_MAIN} commit on {route}: "
             f"{t[0]:.3f}/{t[1]:.3f} ms (medians of 10)")
         del enc
@@ -957,6 +878,9 @@ def ligero_path(res: Results, dev, card: str) -> None:
                                                  serialize_proof, verify)
     from lcpc_proof_of_storage_tpu_torch.fields import FT255, limbs_to_ints
     from lcpc_proof_of_storage_tpu_torch.ops import blake3, collapse, ntt
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import (collapse_cost, hash_columns_cost,
+                                                                 merkle_tree_cost, ntt_cost,
+                                                                 wall_ms)
 
     spec = FT255
     p = spec.modulus
@@ -1031,24 +955,28 @@ def ligero_path(res: Results, dev, card: str) -> None:
     outer, inner = point_tensors(points[0], n_rows, n_per_row, p)
     proof = prove(comm, outer, enc, transcript(root))
     for route, r_enc in encs.items():
-        t_commit = cuda_ms(lambda: commit(coeffs, r_enc, device=dev))
-        t_prove = cuda_ms(lambda: prove(comm, outer, r_enc, transcript(root)))
-        t_verify = cuda_ms(lambda: verify(root, outer, inner, proof, r_enc, transcript(root),
+        t_commit = wall_ms(lambda: commit(coeffs, r_enc, device=dev))
+        t_prove = wall_ms(lambda: prove(comm, outer, r_enc, transcript(root)))
+        t_verify = wall_ms(lambda: verify(root, outer, inner, proof, r_enc, transcript(root),
                                           device=dev))
         say(f"time [{card}]: ligero {route} commit {t_commit:.3f} ms, prove {t_prove:.3f} ms, "
             f"verify {t_verify:.3f} ms at 2^{LOG2_MAIN} {spec.name} (medians of {N_TIMED}; "
             f"{length / (t_commit / 1e3):.0f} coefficients/s committed)")
+    value = leg_report(card, f"ligero 2^{LOG2_MAIN}", spec, serialize_proof(proof, spec),
+                       lambda: prove(comm, outer, enc, transcript(root)),
+                       lambda pr: verify(root, outer, inner, pr, enc, transcript(root),
+                                         device=dev))
+    if value != horner(coeff_ints, points[0], p):
+        raise AssertionError(f"ligero 2^{LOG2_MAIN}: the profiled verify's evaluation is wrong")
 
     L = spec.num_limbs16
     hashes = comm.hashes.clone()
     tvec = torch.from_numpy(random_limbs(rng, (2, n_rows), spec)).to(dev)
-    W = L // 2
     skip = (n_cols // n_per_row).bit_length() - 1     # stages that only duplicate
-    res.bound["ntt"] = ntt_bound(n_rows, n_cols, L, n_cols.bit_length() - 1 - skip)
-    res.bound["blake3_leaves"] = leaves_bound(n_rows, n_cols, spec)
-    res.bound["blake3_tree"] = tree_bound(n_cols)
-    res.bound["collapse"] = bound((n_rows * n_per_row + 2 * n_rows + 2 * n_per_row) * L * 4,
-                                  2 * n_rows * n_per_row * W * W * 2)
+    res.bound["ntt"] = ntt_cost(n_rows, n_cols, L, n_cols.bit_length() - 1 - skip).bound_ms()
+    res.bound["blake3_leaves"] = hash_columns_cost(n_rows, n_cols, spec.repr_bytes).bound_ms()
+    res.bound["blake3_tree"] = merkle_tree_cost(n_cols).bound_ms()
+    res.bound["collapse"] = collapse_cost(n_rows, n_per_row, L, 2).bound_ms()
     timed_pair(res, "ntt", lambda: ntt.ntt(padded, spec, n_per_row, enc.tables(dev)),
                lambda: ntt.ntt_plain(padded, spec, n_per_row, enc.tables(dev)),
                f"({n_rows}, {n_cols}, 16) n_nonzero={n_per_row}, {plan_text(n_cols)}", card,
@@ -1069,21 +997,6 @@ def ligero_path(res: Results, dev, card: str) -> None:
     free_device(dev)
     time_ntt_routes(res, card, spec, padded, n_per_row, f"Ligero 2^{LOG2_MAIN} commit",
                     record=True)
-
-
-def expander_bound(levels, spec) -> tuple[float, str]:
-    """Bound of the K5 calls of one encode: each level's x, used table slots
-    (a column index and W words), counts and row order read once, y written
-    once; 2 W^2 operations a slot product of W-word elements (W = L/2), as
-    for the other kernels."""
-    L = spec.num_limbs16
-    W = L // 2
-    nbytes = ops = 0
-    for tab, x in levels:
-        b, used = x.shape[0], int(tab.counts.sum())
-        nbytes += (b * tab.cols + b * tab.rows) * L * 4 + used * (4 + 4 * W) + tab.rows * 8
-        ops += b * used * W * W * 2
-    return bound(nbytes, ops)
 
 
 def slot_use(counts) -> tuple[int, int]:
@@ -1109,6 +1022,13 @@ def encode_levels(enc, x, spec):
     return levels
 
 
+def level_shapes(levels) -> tuple[int, list[tuple[int, int, int]]]:
+    """(batch, (rows, cols, used slots) of each level) of encode_levels'
+    calls, as utils/profiling.py expander_cost takes them."""
+    return (levels[0][1].shape[0],
+            [(tab.rows, tab.cols, int(tab.counts.sum())) for tab, _ in levels])
+
+
 def brakedown_path(res: Results, dev, card: str) -> None:
     """Brakedown SdigCode3 over ft255, seed 0, at 2^21: commit once, prove and
     verify at BD_POINTS points, proof bytes, root against the plain
@@ -1119,6 +1039,7 @@ def brakedown_path(res: Results, dev, card: str) -> None:
                                                  prove, serialize_proof, verify)
     from lcpc_proof_of_storage_tpu_torch.fields import FT255, limbs_to_ints
     from lcpc_proof_of_storage_tpu_torch.ops import expander as ex
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import expander_cost, wall_ms
 
     spec = FT255
     p = spec.modulus
@@ -1190,17 +1111,17 @@ def brakedown_path(res: Results, dev, card: str) -> None:
 
     outer, inner = point_tensors(points[0], n_rows, n_per_row, p)
     proof = prove(comm, outer, enc, transcript(root))
-    t_commit = cuda_ms(lambda: commit(coeffs, enc, device=dev))
-    t_prove = cuda_ms(lambda: prove(comm, outer, enc, transcript(root)))
-    t_verify = cuda_ms(lambda: verify(root, outer, inner, proof, enc, transcript(root),
+    t_commit = wall_ms(lambda: commit(coeffs, enc, device=dev))
+    t_prove = wall_ms(lambda: prove(comm, outer, enc, transcript(root)))
+    t_verify = wall_ms(lambda: verify(root, outer, inner, proof, enc, transcript(root),
                                       device=dev))
-    t_encode = cuda_ms(lambda: enc.encoder.encode(x_in))
+    t_encode = wall_ms(lambda: enc.encoder.encode(x_in))
     say(f"time [{card}]: brakedown commit {t_commit:.3f} ms, prove {t_prove:.3f} ms, "
         f"verify {t_verify:.3f} ms, encode {t_encode:.3f} ms at 2^{BD_LOG2} {spec.name} "
         f"(medians of {N_TIMED})")
 
     levels = encode_levels(enc.encoder, x_in, spec)
-    res.bound["expander"] = expander_bound(levels, spec)
+    res.bound["expander"] = expander_cost(*level_shapes(levels), spec.num_limbs16).bound_ms()
     timed_pair(res, "expander",
                lambda: [ex.gather_matvec(t, x, spec) for t, x in levels],
                lambda: [ex.gather_matvec_plain(t, x, spec) for t, x in levels],
@@ -1284,6 +1205,12 @@ def brakedown_big(res: Results, dev, card: str) -> None:
         f"{(t2 - t1) * 1e3:.1f} ms, serialize {(t3 - t2) * 1e3:.1f} ms, verify "
         f"{(t4 - t3) * 1e3:.1f} ms (one run each); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if leg_report(card, f"brakedown 2^{BD_LOG2_BIG}", spec, out["blob"],
+                  lambda: prove(comm, outer, enc, transcript(root)),
+                  lambda pr: verify(root, outer, inner, pr, enc, transcript(root),
+                                    device=dev)) != want:
+        raise AssertionError(f"brakedown 2^{BD_LOG2_BIG}: the profiled verify's evaluation is "
+                             f"wrong")
 
     # the streamed commit of the same coefficients: 143 rows are five chunks
     # a column, hashed over the batches of 31, 32, 32, 32 and 16 rows; its
@@ -1338,6 +1265,8 @@ def expander_collapse_kernels(res: Results, dev, card: str) -> None:
     from lcpc_proof_of_storage_tpu_torch.fields.limb import narrow_limbs
     from lcpc_proof_of_storage_tpu_torch.ops import collapse
     from lcpc_proof_of_storage_tpu_torch.ops import expander as ex
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import (bench_kernel, collapse_cost,
+                                                                 expander_cost)
 
     spec = FT255
     gen = torch.Generator(device=dev)
@@ -1362,8 +1291,8 @@ def expander_collapse_kernels(res: Results, dev, card: str) -> None:
                             ex.gather_matvec_plain(tab, xin, spec), quiet=True)
             torch.cuda.synchronize()
             t_plain = (time.perf_counter() - t0) * 1e3
-            b_ms, b_by = expander_bound(levels, spec)
-            k = [event_ms(lambda: [ex.gather_matvec(t, xi, spec) for t, xi in levels])
+            b_ms, b_by = expander_cost(*level_shapes(levels), spec.num_limbs16).bound_ms()
+            k = [bench_kernel(lambda: [ex.gather_matvec(t, xi, spec) for t, xi in levels])
                  for _ in range(2)]
             say(f"time [{card}]: expander the {len(levels)} levels of one 2^{log2} encode "
                 f"(b={b}, {what}), each bit-exact against plain: kernel {k[0]:.4f}/{k[1]:.4f} "
@@ -1378,7 +1307,7 @@ def expander_collapse_kernels(res: Results, dev, card: str) -> None:
             (FT255, *BD_DIMS_BIG[:2], 2, 32, f"the Brakedown 2^{BD_LOG2_BIG} prove"),
             (FT255, 128, ST_DIMS[1], 2, 16, f"one 2^{ST_LOG2} prove batch"),
             (WRITEABLE_FT63, 585, 16384, 1, 16, "one 1 GiB PoS left-multiply batch")):
-        L, W = fspec.num_limbs16, fspec.num_limbs16 // 2
+        L = fspec.num_limbs16
         c = random_limbs_device(gen, (rows, npr), fspec, dev)
         if bits == 16:
             c = narrow_limbs(c)
@@ -1389,11 +1318,9 @@ def expander_collapse_kernels(res: Results, dev, card: str) -> None:
                  f"{' + acc' if acc is not None else ''} ({what})")
         res.compare(name, shape, collapse.collapse(c, t, fspec, acc=acc),
                     collapse.collapse_plain(c, t, fspec, acc=acc))
-        b_ms, b_by = bound(rows * npr * L * bits // 8 + (T * rows + T * npr * (2 if acc is not None
-                                                                            else 1)) * L * 4,
-                           2 * T * rows * npr * W * W)
-        k = [event_ms(lambda: collapse.collapse(c, t, fspec, acc=acc)) for _ in range(2)]
-        p = event_ms(lambda: collapse.collapse_plain(c, t, fspec, acc=acc), 1)
+        b_ms, b_by = collapse_cost(rows, npr, L, T, bits, acc is not None).bound_ms()
+        k = [bench_kernel(lambda: collapse.collapse(c, t, fspec, acc=acc)) for _ in range(2)]
+        p = bench_kernel(lambda: collapse.collapse_plain(c, t, fspec, acc=acc), 1)
         say(f"time [{card}]: {name} {shape}: kernel {k[0]:.4f}/{k[1]:.4f} ms, plain {p:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
         del c, t, acc
@@ -1417,6 +1344,9 @@ def blake3_kernels(res: Results, dev, card: str) -> None:
     from lcpc_proof_of_storage_tpu_torch.core import commit as core_commit
     from lcpc_proof_of_storage_tpu_torch.fields import FT255
     from lcpc_proof_of_storage_tpu_torch.ops import blake3
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import (bench_kernel, device_ms,
+                                                                 hash_columns_cost,
+                                                                 merkle_tree_cost, wall_ms)
 
     new = hasattr(blake3, "merkle_tree")      # an older package builds the tree layer by layer
     tree_kernel = "blake3_tree" if new else "blake3_parents"
@@ -1432,8 +1362,8 @@ def blake3_kernels(res: Results, dev, card: str) -> None:
         shape = f"({rows}, {cols}, 16) ft255 ({what})"
         res.compare("blake3_leaves", shape, blake3.hash_columns(m, spec),
                     blake3.hash_columns_plain(m, spec))
-        b_ms, b_by = leaves_bound(rows, cols, spec)
-        k = [event_ms(lambda: blake3.hash_columns(m, spec)) for _ in range(2)]
+        b_ms, b_by = hash_columns_cost(rows, cols, spec.repr_bytes).bound_ms()
+        k = [bench_kernel(lambda: blake3.hash_columns(m, spec)) for _ in range(2)]
         say(f"time [{card}]: blake3_leaves {shape}: kernel {k[0]:.4f}/{k[1]:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
         del m
@@ -1458,11 +1388,11 @@ def blake3_kernels(res: Results, dev, card: str) -> None:
         torch.cuda.synchronize()
         launches = kernels.KERNELS[tree_kernel].launches
         res.compare(tree_kernel, f"Merkle tree over 2^{log2} leaves", got, torch.cat(layers))
-        b_ms, b_by = tree_bound(n)
-        k = [event_ms(tree_step) for _ in range(2)]
+        b_ms, b_by = merkle_tree_cost(n).bound_ms()
+        k = [bench_kernel(tree_step) for _ in range(2)]
         alone = ""
         if new:
-            a = [event_ms(lambda: blake3.merkle_tree(got)) for _ in range(2)]
+            a = [bench_kernel(lambda: blake3.merkle_tree(got)) for _ in range(2)]
             alone = f"; merkle_tree alone {a[0]:.4f}/{a[1]:.4f} ms"
         d_ms, d_n = device_ms(tree_step)
         say(f"time [{card}]: {tree_kernel} the tree step over 2^{log2} leaves, {launches} "
@@ -1476,7 +1406,7 @@ def blake3_kernels(res: Results, dev, card: str) -> None:
                else BrakedownEncoding.new(1 << log2, seed=0, field=spec))
         coeffs = random_limbs_device(gen, (1 << log2,), spec, dev)
         root = commit(coeffs, enc, device=dev).get_root().root
-        t = [cuda_ms(lambda: commit(coeffs, enc, device=dev), runs=10) for _ in range(2)]
+        t = [wall_ms(lambda: commit(coeffs, enc, device=dev), runs=10) for _ in range(2)]
         d_ms, d_n = device_ms(lambda: commit(coeffs, enc, device=dev), runs=10)
         say(f"time [{card}]: blake3_kernels {name} 2^{log2} commit {t[0]:.3f}/{t[1]:.3f} ms "
             f"(medians of 10), device {d_ms:.3f} ms in {d_n:.0f} kernels a commit "
@@ -1773,6 +1703,8 @@ def streamed_host(res: Results, dev, card: str) -> None:
     from lcpc_proof_of_storage_tpu_torch.fields.limb import limb_field
     from lcpc_proof_of_storage_tpu_torch.ops import blake3, collapse
     from lcpc_proof_of_storage_tpu_torch.utils.serde import serialized_proof_len
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import (bench_kernel, chunk_cvs_cost,
+                                                                 collapse_cost, merge_cvs_cost)
 
     spec = FT255
     L = spec.num_limbs16
@@ -1835,6 +1767,12 @@ def streamed_host(res: Results, dev, card: str) -> None:
     say(f"time [{card}]: streamed 2^{ST_LOG2} host coefficients, keep_comm=False: commit "
         f"{t1 - t0:.3f} s, prove {t2 - t1:.3f} s, serialize {t3 - t2:.3f} s, verify "
         f"{t4 - t3:.3f} s (one run each); {mem}")
+    if leg_report(card, f"streamed 2^{ST_LOG2} host coefficients", spec,
+                  serialize_proof(proof, spec),
+                  lambda: prove(out["comm"], outer, enc, transcript(root)),
+                  lambda pr: verify(root, outer, inner, pr, enc, transcript(root),
+                                    device=dev)) != p_eval:
+        raise AssertionError(f"streamed 2^{ST_LOG2}: the profiled verify's evaluation is wrong")
 
     # prove's two passes over the host coefficients, timed alone: the
     # commitment's store already holds its pinned staging pair (allocated
@@ -1949,9 +1887,7 @@ def streamed_host(res: Results, dev, card: str) -> None:
     lf_t = torch.from_numpy(random_limbs(np.random.default_rng(SEED), (2, rows_c), spec)).to(dev)
     acc = torch.from_numpy(random_limbs(np.random.default_rng(SEED + 1), (2, n_per_row),
                                         spec)).to(dev)
-    W = L // 2
-    res.bound["collapse_acc"] = bound(rows_c * n_per_row * L * 2 + (2 * rows_c + 4 * n_per_row)
-                                      * L * 4, 2 * rows_c * n_per_row * W * W * 2)
+    res.bound["collapse_acc"] = collapse_cost(rows_c, n_per_row, L, 2, 16, True).bound_ms()
     res.compare("collapse_acc", f"one 2^{ST_LOG2} prove batch ({rows_c}, {n_per_row}, 16) "
                 f"16-bit, T=2, + acc", collapse.collapse(c16, lf_t, spec, acc=acc),
                 collapse.collapse_plain(c16, lf_t, spec, acc=acc))
@@ -1964,7 +1900,7 @@ def streamed_host(res: Results, dev, card: str) -> None:
     rows_b = 32
     rows32 = torch.from_numpy(host3[31:31 + rows_b].astype(np.int32)).to(dev)
     batch = enc.encode(rows32)
-    t_k1 = event_ms(lambda: enc.encode(rows32), 5)
+    t_k1 = bench_kernel(lambda: enc.encode(rows32), 5)
     say(f"time [{card}]: K1 through the Ligero encode of one interior 2^{ST_LOG2} commit batch "
         f"({rows_b}, {n_cols}, 16), n_nonzero {n_per_row}: {t_k1:.3f} ms "
         f"({len(streamed._row_batches(n_rows, spec.repr_bytes, rows_b))} batches a commit)")
@@ -1983,8 +1919,7 @@ def streamed_host(res: Results, dev, card: str) -> None:
     res.compare("blake3_chunk_cvs", f"an interior 2^{ST_LOG2} batch ({rows_b}, {n_cols}, 16)",
                 cvs, cvs_plain)
     del cvs_plain
-    res.bound["blake3_chunk_cvs"] = bound(rows_b * n_cols * L * 4 + n_cols * 32,
-                                          n_cols * 16 * BLAKE3_OPS)
+    res.bound["blake3_chunk_cvs"] = chunk_cvs_cost(rows_b, n_cols, spec.repr_bytes).bound_ms()
     timed_pair(res, "blake3_chunk_cvs", lambda: blake3.chunk_cvs(batch, spec, cvs, 1, False),
                lambda: blake3.chunk_cvs_plain(batch, spec, cvs, 1, False),
                f"({rows_b}, {n_cols}, 16) -> ({n_cols}, 1, 8)", card, plain_runs=1)
@@ -1993,8 +1928,7 @@ def streamed_host(res: Results, dev, card: str) -> None:
     cvs = torch.randint(-(1 << 31), (1 << 31) - 1, cvs.shape, dtype=torch.int32, device=dev)
     res.compare("blake3_merge_cvs", f"({n_cols}, {total}, 8)", blake3.merge_cvs(cvs),
                 blake3.merge_cvs_plain(cvs))
-    res.bound["blake3_merge_cvs"] = bound(n_cols * total * 32 + n_cols * 32,
-                                          n_cols * (total - 1) * BLAKE3_OPS)
+    res.bound["blake3_merge_cvs"] = merge_cvs_cost(n_cols, total).bound_ms()
     timed_pair(res, "blake3_merge_cvs", lambda: blake3.merge_cvs(cvs),
                lambda: blake3.merge_cvs_plain(cvs), f"({n_cols}, {total}, 8) -> ({n_cols}, 8)",
                card, plain_runs=1)
@@ -2026,6 +1960,7 @@ def check_pos_kernels(res: Results, dev, card: str) -> None:
     from lcpc_proof_of_storage_tpu_torch.fields import (FT63, FT127, FT253_192, FT255,
                                                         WRITEABLE_FT63)
     from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import bench_kernel, ntt_cost
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 4)
@@ -2061,17 +1996,17 @@ def check_pos_kernels(res: Results, dev, card: str) -> None:
         L = spec.num_limbs16
         tables = ntt.NttTables(spec, n).to(dev)
         x = random_limbs_device(gen, (batch, n), spec, dev)
-        b = ntt_bound(batch, n, L, n.bit_length() - 1, scale=True)
-        k = min(event_ms(lambda: ntt.intt(x, spec, tables)) for _ in range(2))
-        p = event_ms(lambda: ntt.intt_plain(x, spec, tables), 2)
+        b = ntt_cost(batch, n, L, n.bit_length() - 1, scale=True).bound_ms()
+        k = min(bench_kernel(lambda: ntt.intt(x, spec, tables)) for _ in range(2))
+        p = bench_kernel(lambda: ntt.intt_plain(x, spec, tables), 2)
         say(f"time [{card}]: ntt_inverse ({batch}, {n}, {L}) {spec.name} ({what}): kernel "
             f"{k:.4f} ms, plain {p:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); {plan_text(n)}")
         if batch == 1:   # the PoS path's shape is the kernel line's
             res.ms["ntt_inverse"], res.plain_ms["ntt_inverse"] = k, p
             res.bound["ntt_inverse"] = b
         else:
-            kf = event_ms(lambda: ntt.ntt(x, spec, tables=tables))
-            bf = ntt_bound(batch, n, L, n.bit_length() - 1)
+            kf = bench_kernel(lambda: ntt.ntt(x, spec, tables=tables))
+            bf = ntt_cost(batch, n, L, n.bit_length() - 1).bound_ms()
             say(f"time [{card}]: ntt ({batch}, {n}, {L}) {spec.name}, n_nonzero={n}, the same "
                 f"inputs: kernel {kf:.4f} ms, bound {bf[0]:.4f} ms ({bf[1]})")
         del x, tables
@@ -2083,9 +2018,9 @@ def check_pos_kernels(res: Results, dev, card: str) -> None:
     x[:, n // 2:] = 0
     res.compare("ntt", f"{spec.name} batch={batch} n=2^15 n_nonzero={n // 2} (one PoS writer "
                 f"batch)", ntt.ntt(x, spec, n // 2, tables), ntt.ntt_plain(x, spec, n // 2, tables))
-    b = ntt_bound(batch, n, spec.num_limbs16, n.bit_length() - 2)
-    k = min(event_ms(lambda: ntt.ntt(x, spec, n // 2, tables)) for _ in range(2))
-    p = event_ms(lambda: ntt.ntt_plain(x, spec, n // 2, tables), 2)
+    b = ntt_cost(batch, n, spec.num_limbs16, n.bit_length() - 2).bound_ms()
+    k = min(bench_kernel(lambda: ntt.ntt(x, spec, n // 2, tables)) for _ in range(2))
+    p = bench_kernel(lambda: ntt.ntt_plain(x, spec, n // 2, tables), 2)
     say(f"time [{card}]: ntt ({batch}, {n}, 4) {spec.name} n_nonzero={n // 2} (K4's forward "
         f"half, one PoS writer batch): kernel {k:.4f} ms, plain {p:.3f} ms, bound {b[0]:.4f} ms "
         f"({b[1]}); {plan_text(n)}")
@@ -2109,6 +2044,7 @@ def check_pos_path_kernels(res: Results, dev, card: str, gen) -> None:
     from lcpc_proof_of_storage_tpu_torch.pos.file_handler import LEFT_MULTIPLY_BYTES
     from lcpc_proof_of_storage_tpu_torch.pos.storage import (aligned_batches, ceildiv,
                                                              data_bytes_to_limbs, target_rows)
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import bench_kernel, collapse_cost
 
     spec = WRITEABLE_FT63
     L, W, cap = spec.num_limbs16, spec.repr_bytes, spec.data_byte_capacity
@@ -2122,9 +2058,9 @@ def check_pos_path_kernels(res: Results, dev, card: str, gen) -> None:
     res.compare("collapse_acc", f"one 1 GiB PoS left-multiply batch ({rows_b}, {n_pre}, {L}) "
                 f"16-bit, T=1, + acc", collapse.collapse(mat, t, spec, acc=acc),
                 collapse.collapse_plain(mat, t, spec, acc=acc))
-    k = min(event_ms(lambda: collapse.collapse(mat, t, spec, acc=acc)) for _ in range(2))
-    p = event_ms(lambda: collapse.collapse_plain(mat, t, spec, acc=acc), 2)
-    b = bound(mat.numel() * 2 + (rows_b + 2 * n_pre) * L * 4, 2 * rows_b * n_pre * (L // 2) ** 2)
+    k = min(bench_kernel(lambda: collapse.collapse(mat, t, spec, acc=acc)) for _ in range(2))
+    p = bench_kernel(lambda: collapse.collapse_plain(mat, t, spec, acc=acc), 2)
+    b = collapse_cost(rows_b, n_pre, L, 1, 16, True).bound_ms()
     say(f"time [{card}]: collapse_acc ({rows_b}, {n_pre}, {L}) 16-bit T=1 + acc (one PoS "
         f"left-multiply batch): kernel {k:.4f} ms, plain {p:.3f} ms, bound {b[0]:.4f} ms "
         f"({b[1]})")
@@ -2307,6 +2243,12 @@ def pos_small(res: Results, dev, card: str) -> None:
                  for d in (dev, "cpu")}
         if evals[dev] != evals["cpu"]:
             raise AssertionError("the card's evaluation vector differs from the CPU handler's")
+        api_launches = launches_of(lambda: pos_row_column_api(base, meta, data, dev))
+        res.add_launches("pos_small_16MiB_row_column_api", api_launches)
+        missing = [k for k in ("ntt", "blake3_chunk_cvs", "blake3_merge_cvs", "blake3_tree")
+                   if api_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched by the row and column API: {missing}")
         vals = [int(v) for v in __import__("numpy").random.default_rng(SEED + 17).integers(
             0, WRITEABLE_FT63.modulus, 200 * 2048, dtype="uint64")]
         roots = {}
@@ -2330,6 +2272,58 @@ def pos_small(res: Results, dev, card: str) -> None:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     free_device(dev)
+
+
+def pos_row_column_api(base, meta, data: bytes, dev) -> None:
+    """The row and column API on the card, on the copy of the uploaded
+    quadruple under base/copy: a row replaced by its own bytes (K1) leaves
+    the recalculated root (K2's chunk CVs, merge and tree); by new bytes,
+    the recalculated tree equals a fresh writer's over the edited raw bytes
+    and the one-shot commit's; the handler's digests and the server's
+    retrieved columns agree with that tree (paths checked with and without
+    the full columns)."""
+    import numpy as np
+    from lcpc_proof_of_storage_tpu_torch.fields import WRITEABLE_FT63
+    from lcpc_proof_of_storage_tpu_torch.pos import online
+    from lcpc_proof_of_storage_tpu_torch.pos.file_handler import FileHandler
+    from lcpc_proof_of_storage_tpu_torch.pos.storage import EncodedFileWriter
+
+    spec = WRITEABLE_FT63
+    fh = FileHandler.attach(meta.id_ulid, spec, base=base / "copy", device=dev)
+    n_pre, n_enc = fh.pre_encoded_size, fh.encoded_size
+    row_b, r = fh.row_data_bytes, 5
+    fh.reader.replace_row_with_decoded_bytes(r, data[r * row_b:(r + 1) * row_b])
+    fh.reader.flush()
+    if fh.recalculate_merkle_tree().root() != meta.root:
+        raise AssertionError("a row replaced by its own bytes changed the recalculated root")
+    new = np.random.default_rng(SEED + 18).integers(0, 256, row_b, dtype=np.uint8).tobytes()
+    fh.reader.replace_row_with_decoded_bytes(r, new)
+    fh.reader.flush()
+    tree = fh.recalculate_merkle_tree()
+    edited = data[:r * row_b] + new + data[(r + 1) * row_b:]
+    (base / "edited.bin").write_bytes(edited)
+    _, fresh = EncodedFileWriter.convert_unencoded_file(
+        base / "edited.bin", base / "edited.porenc", None, None, n_pre, n_enc, spec, device=dev)
+    comm = online.commit_file_data(edited, n_pre, n_enc, spec, dev)
+    if not (tree.digests == fresh.digests
+            and comm.get_root().root == tree.root() == fh.get_commit_root()):
+        raise AssertionError("the recalculated tree differs from a fresh writer's or the "
+                             "one-shot commit's over the edited bytes")
+    need = online.get_pos_soundness_n_cols(n_pre, n_enc)
+    cols = online.get_column_indices_from_random_seed(SEED, need, n_enc)
+    digests = fh.read_only_digests(cols)
+    columns = online.server_retrieve_columns(comm, cols)
+    if ([online.hash_column_to_digest(c, spec) for c in columns] != digests
+            or digests != [tree[c] for c in cols]):
+        raise AssertionError("the handler's digests, the retrieved columns and the tree differ")
+    online.verify_column_paths(tree.root(), cols, columns, spec)
+    online.client_verify_commitment_without_full_columns(
+        tree.root(), digests, cols, digests, [c.path for c in columns], need)
+    if fh.get_encoded_row(r).shape != (n_enc, spec.num_limbs16):
+        raise AssertionError("get_encoded_row's shape")
+    say(f"pos_small: row and column API on the card: row {r} replaced by its own bytes keeps "
+        f"the root, by new bytes gives the root {tree.root().hex()[:16]}... of a fresh writer "
+        f"and of the one-shot commit; {need} columns' digests and paths agree with the tree")
 
 
 def pos_path(res: Results, dev, card: str) -> None:
@@ -2483,16 +2477,6 @@ def pos_upload_legs(src, meta, enc_path, dev, card: str, upload_s: float) -> Non
 MESH_SIZES = (3, 4, 8)    # shards on one card; leg (a) at all, the wide legs at powers of two
 
 
-def wall_ms(fn) -> float:
-    """Host-clock milliseconds of one synchronised call of fn()."""
-    import torch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
-
-
 _POINTS = {}
 
 
@@ -2548,6 +2532,7 @@ def digest_path(res: Results, dev, card: str) -> None:
     from lcpc_proof_of_storage_tpu_torch.crypto.digest import (BLAKE2B, column_messages,
                                                                merkle_tree_host)
     from lcpc_proof_of_storage_tpu_torch.core.storage import limb_matrix
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import wall_ms
 
     for name, kernel in (("ligero", "ntt"), ("brakedown", "expander")):
         enc, coeffs, coeff_ints = full_width_point(name, dev)
@@ -2588,14 +2573,17 @@ def digest_path(res: Results, dev, card: str) -> None:
 
         coeff_mat = limb_matrix(coeffs, enc, dev)[0]
         msgs, leaves = {}, {}
-        t_read = wall_ms(lambda: msgs.update(m=column_messages(enc.encode(coeff_mat), spec)))
-        t_leaves = wall_ms(lambda: leaves.update(v=BLAKE2B.hash_many(msgs["m"])))
-        t_layers = wall_ms(lambda: merkle_tree_host(leaves["v"], n_cols, BLAKE2B, dev))
+        t_read = wall_ms(lambda: msgs.update(m=column_messages(enc.encode(coeff_mat), spec)),
+                         runs=1, warmup=0)
+        t_leaves = wall_ms(lambda: leaves.update(v=BLAKE2B.hash_many(msgs["m"])), runs=1,
+                           warmup=0)
+        t_layers = wall_ms(lambda: merkle_tree_host(leaves["v"], n_cols, BLAKE2B, dev),
+                           runs=1, warmup=0)
         b3_root = b3.get_root().root
         runs = {"blake2b": (root, out["proof"]),
                 "blake3": (b3_root, prove(b3, outer, enc, transcript(b3_root)))}
-        t = {d: (cuda_ms(lambda: commit(coeffs, enc, device=dev, digest=d)),
-                 cuda_ms(lambda: verify(r, outer, inner, pr, enc, transcript(r), device=dev,
+        t = {d: (wall_ms(lambda: commit(coeffs, enc, device=dev, digest=d)),
+                 wall_ms(lambda: verify(r, outer, inner, pr, enc, transcript(r), device=dev,
                                         digest=d)))
              for d, (r, pr) in runs.items()}
         say(f"time [{card}]: digest {name} {spec.name} ({n_rows}, {n_per_row}, {n_cols}): "
@@ -2719,6 +2707,7 @@ def mesh_path(res: Results, dev, card: str) -> None:
     from lcpc_proof_of_storage_tpu_torch.parallel import mesh as pm
     from lcpc_proof_of_storage_tpu_torch.parallel.cross_chip_ntt import split_lengths
     from lcpc_proof_of_storage_tpu_torch.parallel.sharded import training_step
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import wall_ms
 
     spy = Spy()
     meshes = mesh_meshes(dev)
@@ -2734,7 +2723,7 @@ def mesh_path(res: Results, dev, card: str) -> None:
         single = commit(coeffs, enc, device=dev)
         root = single.get_root().root
         blob = serialize_proof(prove(single, outer, enc, transcript(root)), spec)
-        t_single = cuda_ms(lambda: commit(coeffs, enc, device=dev))
+        t_single = wall_ms(lambda: commit(coeffs, enc, device=dev))
         n_levels = len(enc.encoder.pre) + len(enc.encoder.post) if name == "brakedown" else 0
         times = [f"one device {t_single:.3f} ms"]
         for mesh in meshes:
@@ -2748,7 +2737,7 @@ def mesh_path(res: Results, dev, card: str) -> None:
                      {**encode_kernel, "blake3_leaves": D, "blake3_tree": 1})
             if not torch.equal(out["a"].hashes, single.hashes):
                 raise AssertionError(f"mesh (a) {name} {tag}: Merkle array differs")
-            times.append(f"(a) {tag} {cuda_ms(leg_a):.3f} ms")
+            times.append(f"(a) {tag} {wall_ms(leg_a):.3f} ms")
             if name == "brakedown":
                 def leg_f():
                     pr = prove(out["a"], outer, enc, transcript(root))
@@ -2776,7 +2765,7 @@ def mesh_path(res: Results, dev, card: str) -> None:
                      {**wide_kernels, "blake3_leaves": D, "blake3_tree": 1})
             if not torch.equal(out["b"].hashes, single.hashes):
                 raise AssertionError(f"mesh wide {name} {tag}: Merkle array differs")
-            times.append(f"wide {tag} {cuda_ms(leg_b):.3f} ms")
+            times.append(f"wide {tag} {wall_ms(leg_b):.3f} ms")
 
             def leg_d():
                 pr = prove(out["b"], outer, enc_w, transcript(root))

@@ -22,6 +22,7 @@ Proof objects live on the host and keep the reference's attribute names
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,9 +37,10 @@ from ..fields.limb import limb_field
 from ..native import fold_paths_native
 from ..ops.blake3 import digest_to_bytes, digests_to_bytes, hash_columns, merkle_array, merkle_tree
 from ..parallel.mesh import gather, scatter
+from ..utils.profiling import phase as _phase
 from .encoding import (LABEL_CO, LABEL_DT, LABEL_PE, LABEL_PR, LcEncoding, ceil_log2,
                        next_power_of_two)
-from .storage import as_rows, limb_matrix
+from .storage import HostRows, as_rows, limb_matrix
 
 
 class ProverError(Exception):
@@ -452,9 +454,27 @@ def _columns_to_open(tr: Transcript, n_cols: int, n: int) -> list[int]:
     return out
 
 
+def _profile_sync(*devices) -> None:
+    """With LCPC_PROFILE_PROTO=1 (read at each call, as the JAX package
+    reads it), wait for the work queued on these devices, so that a device
+    leg's span holds its card time and the readback after it does not;
+    otherwise nothing: the spans add no sync and no launch."""
+    if os.environ.get("LCPC_PROFILE_PROTO") != "1":
+        return
+    for d in dict.fromkeys(torch.device(d) for d in devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
 def prove(comm: LcCommit, outer_tensor: list[int], enc: LcEncoding,
           tr: Transcript) -> LcEvalProof:
-    """lcpc-2d/src/lib.rs:1034-1123, on the commitment's device."""
+    """lcpc-2d/src/lib.rs:1034-1123, on the commitment's device.
+
+    Its legs are phase spans of utils/profiling.GLOBAL_PHASES (actor
+    "prove"), named as the JAX package names them: challenge, collapse,
+    transcript, sample, then open (a streamed commitment without its
+    encoded matrix, or one kept in host memory) or open_device and
+    open_readback, then paths and build."""
     check_comm(comm, enc)
     if len(outer_tensor) != comm.n_rows:
         raise ProverError("outer tensor: wrong size")
@@ -465,38 +485,53 @@ def prove(comm: LcCommit, outer_tensor: list[int], enc: LcEncoding,
     p_random_vec = []
     p_eval = pe_limbs = None
     for i in range(enc.get_n_degree_tests()):
-        rand_tensor = _challenge_tensor(tr, spec, comm.n_rows)
-        if i == 0:
-            (p_random, pr_limbs), (p_eval, pe_limbs) = _collapse_rows(
-                comm, [rand_tensor, outer_tensor], spec)
-        else:
-            (p_random, pr_limbs), = _collapse_rows(comm, [rand_tensor], spec)
-        _append_coeffs(tr, LABEL_PR, pr_limbs, spec)
+        with _phase("challenge", "prove"):
+            rand_tensor = _challenge_tensor(tr, spec, comm.n_rows)
+        with _phase("collapse", "prove"):
+            if i == 0:
+                (p_random, pr_limbs), (p_eval, pe_limbs) = _collapse_rows(
+                    comm, [rand_tensor, outer_tensor], spec)
+            else:
+                (p_random, pr_limbs), = _collapse_rows(comm, [rand_tensor], spec)
+        with _phase("transcript", "prove"):
+            _append_coeffs(tr, LABEL_PR, pr_limbs, spec)
         p_random_vec.append(_LimbRow(p_random, pr_limbs))
     if p_eval is None:
-        (p_eval, pe_limbs), = _collapse_rows(comm, [outer_tensor], spec)
-    _append_coeffs(tr, LABEL_PE, pe_limbs, spec)
+        with _phase("collapse", "prove"):
+            (p_eval, pe_limbs), = _collapse_rows(comm, [outer_tensor], spec)
+    with _phase("transcript", "prove"):
+        _append_coeffs(tr, LABEL_PE, pe_limbs, spec)
 
     # the opened columns and their sibling paths in one gather each (a
     # streamed commitment without its encoded matrix re-encodes the rows
     # instead); the paths stay one packed (k, depth, 32) array (depth >= 1:
     # check_comm requires n_cols > n_per_row >= 1), with no per-column byte
     # lists
-    cols_to_open = _columns_to_open(tr, comm.n_cols, enc.get_n_col_opens())
+    with _phase("sample", "prove"):
+        cols_to_open = _columns_to_open(tr, comm.n_cols, enc.get_n_col_opens())
     k = len(cols_to_open)
-    if comm.comm_rows is None:
-        cols_arr = comm.coeff_rows.open_columns(enc, comm.n_cols, cols_to_open)
+    store = comm.comm_rows
+    if store is None or isinstance(store, HostRows):
+        with _phase("open", "prove"):
+            cols_arr = (comm.coeff_rows.open_columns(enc, comm.n_cols, cols_to_open)
+                        if store is None else store.gather(cols_to_open))    # (rows, k, L)
     else:
-        cols_arr = comm.comm_rows.gather(cols_to_open)                  # (rows, k, L)
-    pidx = torch.from_numpy(_path_indices(comm.n_cols, cols_to_open)).to(comm.device)
-    paths_packed = _packed_from_sibs(comm.hashes[pidx].cpu().numpy(), k,
-                                     ceil_log2(comm.n_cols))
-    packed = np.ascontiguousarray(cols_arr.transpose(1, 0, 2)).astype(np.uint32)
-    columns = [LcColumn(col_limbs=packed[i], spec=spec, sibs=paths_packed, sib_idx=i)
-               for i in range(k)]
-    proof = LcEvalProof(n_cols=comm.n_cols, p_eval=_LimbRow(p_eval, pe_limbs),
-                        p_random_vec=p_random_vec, columns=columns)
-    proof._paths_packed = paths_packed
+        with _phase("open_device", "prove"):
+            taken = store.take(cols_to_open)
+            _profile_sync(*store.devices)
+        with _phase("open_readback", "prove"):
+            cols_arr = store.readback(taken)
+    with _phase("paths", "prove"):
+        pidx = torch.from_numpy(_path_indices(comm.n_cols, cols_to_open)).to(comm.device)
+        paths_packed = _packed_from_sibs(comm.hashes[pidx].cpu().numpy(), k,
+                                         ceil_log2(comm.n_cols))
+    with _phase("build", "prove"):
+        packed = np.ascontiguousarray(cols_arr.transpose(1, 0, 2)).astype(np.uint32)
+        columns = [LcColumn(col_limbs=packed[i], spec=spec, sibs=paths_packed, sib_idx=i)
+                   for i in range(k)]
+        proof = LcEvalProof(n_cols=comm.n_cols, p_eval=_LimbRow(p_eval, pe_limbs),
+                            p_random_vec=p_random_vec, columns=columns)
+        proof._paths_packed = paths_packed
     return proof
 
 
@@ -517,15 +552,22 @@ def _verify_checks_fused(enc: LcEncoding, rows_mat: np.ndarray, rand_mats: torch
     reference does).
     Returns (rand_ok (ndt, k), eval_ok (k,), leaves (k, 8) or None)."""
     lf = limb_field(enc.spec)
-    fft = enc.encode(torch.from_numpy(rows_mat).to(dev))
-    sel = fft[:, torch.tensor(cols_to_open, dtype=torch.int64, device=dev)]   # (ndt+1, k, L)
-    cols_dev = torch.from_numpy(cols.astype(np.int32)).to(dev)                 # (k, rows, L)
-    d_rand = lf.dot(cols_dev[None], rand_mats[:, None], axis=2)               # (ndt, k, L)
-    d_eval = lf.dot(cols_dev, outer_mat[None], axis=1)                        # (k, L)
-    rand_ok = (d_rand == sel[:-1]).all(dim=-1)
-    eval_ok = (d_eval == sel[-1]).all(dim=-1)
-    leaves = hash_columns(cols_dev.transpose(0, 1).contiguous(), enc.spec) if hash_leaves else None
-    return rand_ok.cpu().numpy(), eval_ok.cpu().numpy(), leaves
+    with _phase("upload", "verify"):
+        rows_dev = torch.from_numpy(rows_mat).to(dev)
+        cols_dev = torch.from_numpy(cols.astype(np.int32)).to(dev)             # (k, rows, L)
+        open_dev = torch.tensor(cols_to_open, dtype=torch.int64, device=dev)
+        _profile_sync(dev)
+    with _phase("device", "verify"):
+        sel = enc.encode(rows_dev)[:, open_dev]                                # (ndt+1, k, L)
+        d_rand = lf.dot(cols_dev[None], rand_mats[:, None], axis=2)           # (ndt, k, L)
+        d_eval = lf.dot(cols_dev, outer_mat[None], axis=1)                    # (k, L)
+        rand_ok = (d_rand == sel[:-1]).all(dim=-1)
+        eval_ok = (d_eval == sel[-1]).all(dim=-1)
+        leaves = (hash_columns(cols_dev.transpose(0, 1).contiguous(), enc.spec) if hash_leaves
+                  else None)
+        _profile_sync(dev, *(enc.mesh.devices if enc.mesh is not None else ()))
+    with _phase("readback", "verify"):
+        return rand_ok.cpu().numpy(), eval_ok.cpu().numpy(), leaves
 
 
 def _fold_path(leaf: bytes, col_num: int, path: list[bytes]) -> bytes:
@@ -616,7 +658,12 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
     the host).  `digest` must be the committer's (the root binds it): the
     re-encode and the column dots stay on the device, and a digest other
     than Blake3 hashes the leaves and folds the paths on the host, as the
-    reference does (core/commit.py:1140-1153 of the JAX package)."""
+    reference does (core/commit.py:1140-1153 of the JAX package).
+
+    Its legs are phase spans of utils/profiling.GLOBAL_PHASES (actor
+    "verify"), named as the JAX package names them: limbs, transcript,
+    sample, stage, upload, device (the re-encode, the column dots and the
+    leaves), readback, fold and eval."""
     dev = default_device(_device_for(enc, device))
     host_digest = None if digest == "blake3" else get_digest(digest)
     spec = enc.spec
@@ -636,47 +683,53 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
         raise VerifierError("EncodingDims")
 
     n_degree = enc.get_n_degree_tests()
-    row_limbs = [_row_limbs_of(v, spec) for v in proof.p_random_vec + [proof.p_eval]]
-    rand_tensor_vec = []
-    for i in range(n_degree):
-        rand_tensor_vec.append(_challenge_tensor(tr, spec, n_rows))
-        _append_coeffs(tr, LABEL_PR, row_limbs[i], spec)
-    _append_coeffs(tr, LABEL_PE, row_limbs[-1], spec)
-    cols_to_open = _columns_to_open(tr, n_cols, n_col_opens)
+    with _phase("limbs", "verify"):
+        row_limbs = [_row_limbs_of(v, spec) for v in proof.p_random_vec + [proof.p_eval]]
+    with _phase("transcript", "verify"):
+        rand_tensor_vec = []
+        for i in range(n_degree):
+            rand_tensor_vec.append(_challenge_tensor(tr, spec, n_rows))
+            _append_coeffs(tr, LABEL_PR, row_limbs[i], spec)
+        _append_coeffs(tr, LABEL_PE, row_limbs[-1], spec)
+    with _phase("sample", "verify"):
+        cols_to_open = _columns_to_open(tr, n_cols, n_col_opens)
 
     if any(len(c) != n_rows for c in proof.columns):
         # such a proof can never verify (the leaf hash covers the column)
         raise VerifierError("OuterTensor", "ragged column lengths")
-    cols_np = np.stack([c.col_limbs(spec) for c in proof.columns])         # (k, rows, L)
-    rand_mats = torch.stack([lf.array(t) for t in rand_tensor_vec]).to(dev)
-    outer_mat = lf.array(outer_tensor, dev)
+    with _phase("stage", "verify"):
+        cols_np = np.stack([c.col_limbs(spec) for c in proof.columns])     # (k, rows, L)
+        rand_mats = torch.stack([lf.array(t) for t in rand_tensor_vec]).to(dev)
+        outer_mat = lf.array(outer_tensor, dev)
 
     # a malformed proof may carry longer rows: the reference copies each
     # row into an n_cols buffer and truncates (lib.rs:913-916), so widen to
     # the longest row (capped at n_cols) and encode every coefficient
     width = min(n_cols, max([n_per_row] + [len(l) for l in row_limbs]))
-    rows_mat = np.zeros((n_degree + 1, width, lf.L), np.int32)
-    for i, limbs in enumerate(row_limbs):
-        rows_mat[i, : min(len(limbs), width)] = limbs[:width]
+    with _phase("stage", "verify"):
+        rows_mat = np.zeros((n_degree + 1, width, lf.L), np.int32)
+        for i, limbs in enumerate(row_limbs):
+            rows_mat[i, : min(len(limbs), width)] = limbs[:width]
     rand_ok_arr, eval_ok_arr, leaves = _verify_checks_fused(
         enc, rows_mat, rand_mats, outer_mat, cols_np, cols_to_open, dev,
         hash_leaves=host_digest is None)
 
-    if host_digest is not None:
-        leaf_rows = column_leaves_host(cols_np.transpose(1, 0, 2), spec, host_digest)
-        folded = _fold_paths_generic([r.tobytes() for r in leaf_rows], cols_to_open,
-                                     [c.path for c in proof.columns], host_digest)
-    else:
-        # the packed sibling array is trusted only while every column is still
-        # lazily backed by its own row of it
-        sp = getattr(proof, "_paths_packed", None)
-        packed_ok = (sp is not None and sp.ndim == 3 and sp.shape[0] == len(proof.columns)
-                     and sp.shape[2] == 32
-                     and all(c._path is None and c._sibs is sp and c._sibi == i
-                             for i, c in enumerate(proof.columns)))
-        folded = _fold_paths_batch(digests_to_bytes(leaves), cols_to_open,
-                                   None if packed_ok else [c.path for c in proof.columns],
-                                   sibs_packed=sp if packed_ok else None)
+    with _phase("fold", "verify"):
+        if host_digest is not None:
+            leaf_rows = column_leaves_host(cols_np.transpose(1, 0, 2), spec, host_digest)
+            folded = _fold_paths_generic([r.tobytes() for r in leaf_rows], cols_to_open,
+                                         [c.path for c in proof.columns], host_digest)
+        else:
+            # the packed sibling array is trusted only while every column is
+            # still lazily backed by its own row of it
+            sp = getattr(proof, "_paths_packed", None)
+            packed_ok = (sp is not None and sp.ndim == 3 and sp.shape[0] == len(proof.columns)
+                         and sp.shape[2] == 32
+                         and all(c._path is None and c._sibs is sp and c._sibi == i
+                                 for i, c in enumerate(proof.columns)))
+            folded = _fold_paths_batch(digests_to_bytes(leaves), cols_to_open,
+                                       None if packed_ok else [c.path for c in proof.columns],
+                                       sibs_packed=sp if packed_ok else None)
     for k, col_num in enumerate(cols_to_open):
         if not all(rand_ok_arr[i][k] for i in range(n_degree)):
             raise VerifierError("ColumnDegree", f"column {col_num}")
@@ -685,4 +738,5 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
         if folded[k] != root:
             raise VerifierError("ColumnPath", f"column {col_num}")
 
-    return sum(t * e for t, e in zip(inner_tensor, proof.p_eval)) % spec.modulus
+    with _phase("eval", "verify"):
+        return sum(t * e for t, e in zip(inner_tensor, proof.p_eval)) % spec.modulus

@@ -107,8 +107,10 @@ def host_limb_matrix(coeffs, enc: LcEncoding):
 # --------------------------------------------------------------------------
 
 class _Rows:
-    """What both stores share: the shape and the batched re-encode of opened
-    columns."""
+    """What the stores share: the shape and the batched re-encode of opened
+    columns.  The stores on devices gather columns in two steps, ``take``
+    (on the devices) and ``readback`` (to the host), which prove times
+    apart."""
 
     data: torch.Tensor | np.ndarray
     device: torch.device
@@ -116,6 +118,14 @@ class _Rows:
     @property
     def shape(self) -> tuple[int, ...]:
         return tuple(self.data.shape)
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return (self.device,)
+
+    def gather(self, cols: list[int]) -> np.ndarray:
+        """(n_rows, k, L) uint32 limbs of the given columns."""
+        return self.readback(self.take(cols))
 
     def rows(self, r0: int, r1: int) -> torch.Tensor:
         raise NotImplementedError
@@ -151,10 +161,14 @@ class DeviceRows(_Rows):
     def flush(self) -> None:
         pass
 
-    def gather(self, cols: list[int]) -> np.ndarray:
-        """(n_rows, k, L) uint32 limbs of the given columns."""
+    def take(self, cols: list[int]) -> torch.Tensor:
+        """(n_rows, k, L) int32 limbs of the given columns, on the device."""
         cidx = torch.tensor(cols, dtype=torch.int64, device=self.device)
-        return widen_limbs(self.data[:, cidx]).cpu().numpy().astype(np.uint32)
+        return widen_limbs(self.data[:, cidx])
+
+    @staticmethod
+    def readback(taken: torch.Tensor) -> np.ndarray:
+        return taken.cpu().numpy().astype(np.uint32)
 
     def collapse(self, t: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
         """One K3 call over the whole matrix, with no batching."""
@@ -267,20 +281,33 @@ class ShardedRows(_Rows):
         n_rows, _, L = self.data[0].shape
         return (n_rows, int(self.starts[-1]), L)
 
-    def gather(self, cols: list[int]) -> np.ndarray:
-        """(n_rows, k, L) uint32 limbs of the given columns, each read from
-        its block on its device."""
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return tuple(dict.fromkeys(b.device for b in self.data))
+
+    def take(self, cols: list[int]) -> list[tuple[np.ndarray, torch.Tensor]]:
+        """The given columns, each read from its block on its device: per
+        block holding some, (their positions in `cols`, their (n_rows, k_b,
+        L) limbs)."""
         cols = np.asarray(cols, np.int64)
-        n_rows, width, L = self.shape
+        width = self.shape[1]
         if cols.size and not (0 <= cols.min() and cols.max() < width):
             raise IndexError(f"column outside [0, {width})")
-        out = np.empty((n_rows, len(cols), L), np.uint32)
         which = np.searchsorted(self.starts, cols, side="right") - 1
+        taken = []
         for k in np.unique(which):
             sel = np.flatnonzero(which == k)
             block = self.data[k]
             idx = torch.from_numpy(cols[sel] - self.starts[k]).to(block.device)
-            out[:, sel] = block[:, idx].cpu().numpy()
+            taken.append((sel, block[:, idx]))
+        return taken
+
+    def readback(self, taken: list[tuple[np.ndarray, torch.Tensor]]) -> np.ndarray:
+        """(n_rows, k, L) uint32 limbs of what :meth:`take` returned."""
+        n_rows, _, L = self.shape
+        out = np.empty((n_rows, sum(len(sel) for sel, _ in taken), L), np.uint32)
+        for sel, part in taken:
+            out[:, sel] = part.cpu().numpy()
         return out
 
     def collapse(self, t: torch.Tensor, spec: FieldSpec) -> torch.Tensor:

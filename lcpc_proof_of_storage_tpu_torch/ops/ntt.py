@@ -57,6 +57,7 @@ import torch
 from .. import kernels
 from ..fields.field import FieldSpec, ints_to_limbs
 from ..fields.limb import LimbField, limb_field, widen_limbs
+from ..utils.profiling import KernelCost, modmul_cost, tile_cost
 
 
 def _bit_reverse_perm(n: int) -> np.ndarray:
@@ -661,6 +662,18 @@ class TileCall:
         return ntt_tile_stages_plain(self.x, self.tables, self.s0, self.s1, self.diag,
                                      self.inverse, self.out_limbs)
 
+    def cost(self) -> KernelCost:
+        """:func:`~..utils.profiling.tile_cost` of this call (the prologue's
+        twiddles equal to 1 counted in the tables)."""
+        L = self.tables.spec.num_limbs16
+        ones = 0
+        if self.diag:    # the diagonal twiddles equal to 1 (limbs 1, 0, .., 0)
+            t = self.tables.fs_tw
+            ones = int(((t[:, 0] == 1) & (t[:, 1:] == 0).all(-1)).sum())
+        return tile_cost(self.x.numel() // self.x.shape[-1], L, self.s0, self.s1,
+                         self.x.shape[-1] == L, self.out_limbs,
+                         self.tables.n if self.diag else 0, ones)
+
 
 @dataclasses.dataclass(frozen=True)
 class MulModCall:
@@ -675,6 +688,9 @@ class MulModCall:
 
     def plain(self) -> torch.Tensor:
         return mul_mod_plain(self.a, self.b, self.spec)
+
+    def cost(self) -> KernelCost:
+        return modmul_cost(self.a.shape[0], self.spec.num_limbs16, self.b.shape[0])
 
 
 def _launch(call: TileCall | MulModCall, calls: list | None) -> torch.Tensor:

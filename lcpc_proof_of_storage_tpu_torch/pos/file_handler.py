@@ -208,7 +208,21 @@ class FileHandler:
             self._write_tree(tree)
         return tree
 
+    def recalculate_merkle_tree(self) -> MerkleTree:
+        """The tree of the encoded file as it is on disk (its rows read back
+        in chunk-aligned batches, K2's chunk CVs, merge and tree), stored and
+        written; the chunk-CV cache, which may no longer match the file, is
+        rebuilt at its next use."""
+        tree = self.reader.process_file_to_merkle_tree()
+        self.merkle_tree = tree
+        self._write_tree(tree)
+        self._cv_cache = None
+        return tree
+
     # -- access --------------------------------------------------------------
+    def get_encoded_row(self, row: int) -> np.ndarray:
+        return self.reader.get_encoded_row(row)
+
     def get_decoded_row_bytes(self, row: int) -> bytes:
         return self.reader.get_unencoded_row_bytes(row)
 
@@ -223,6 +237,10 @@ class FileHandler:
         with open(self.paths["raw"], "rb") as f:
             f.seek(start)
             return f.read(end - start)
+
+    def read_only_digests(self, columns: list[int] | None = None) -> list[bytes]:
+        cols = columns if columns is not None else list(range(self.encoded_size))
+        return [self.merkle_tree[c] for c in cols]
 
     def read_full_columns(self, columns: list[int] | None = None) -> list[LcColumn]:
         cols = columns if columns is not None else list(range(self.encoded_size))

@@ -20,7 +20,7 @@ import math
 import torch
 
 from ..codes.ligero import LigeroEncoding
-from ..core.commit import LcColumn, LcCommit, commit, default_device
+from ..core.commit import LcColumn, LcCommit, commit, default_device, open_column
 from ..crypto.blake3_ref import blake3
 from ..crypto.chacha import chacha8_rng_from_u64, choose_multiple
 from ..fields.field import FieldSpec, WRITEABLE_FT63, limbs_to_ints
@@ -141,6 +141,19 @@ def streaming_leaves_for_file(path, n_pre: int, n_enc: int,
     return acc.get_column_digests()
 
 
+def columns_with_path_for_file_data(data: bytes, n_pre: int, n_enc: int,
+                                    requested: list[int], spec: FieldSpec = POS_FIELD,
+                                    device=None) -> list[LcColumn]:
+    """The requested columns, with their Merkle paths, of the one-shot
+    commit of the data."""
+    comm = commit_file_data(data, n_pre, n_enc, spec, device)
+    return [open_column(comm, c) for c in requested]
+
+
+def server_retrieve_columns(comm: LcCommit, requested: list[int]) -> list[LcColumn]:
+    return [open_column(comm, c) for c in requested]
+
+
 # -- client-side verification ----------------------------------------------
 
 def hash_field_vec_to_digest(vals: list[int], spec: FieldSpec = POS_FIELD) -> bytes:
@@ -160,6 +173,18 @@ def verify_column_paths(root: bytes, requested: list[int],
     for col_num, col in zip(requested, columns):
         h = hash_column_to_digest(col, spec)
         if not _fold_path(h, col.path, col_num) == root:
+            raise VerificationError(f"merkle path failed for column {col_num}")
+
+
+def verify_column_paths_without_full_columns(
+        root: bytes, requested: list[int], digests: list[bytes],
+        paths: list[list[bytes]]) -> None:
+    """lcpc_online.rs:280-318: each column's digest folded up its path is
+    the root."""
+    if len(paths) != len(requested):
+        raise VerificationError("path count mismatch")
+    for col_num, digest, path in zip(requested, digests, paths):
+        if _fold_path(digest, path, col_num) != root:
             raise VerificationError(f"merkle path failed for column {col_num}")
 
 
@@ -192,6 +217,20 @@ def client_verify_commitment(root: bytes, local_leaves: list[bytes],
     received = [hash_column_to_digest(c, spec) for c in columns]
     verify_column_leaves(local_leaves, requested, received)
     verify_column_paths(root, requested, columns, spec)
+
+
+def client_verify_commitment_without_full_columns(
+        root: bytes, local_leaves: list[bytes], requested: list[int],
+        received_digests: list[bytes], received_paths: list[list[bytes]],
+        required_for_soundness: int) -> None:
+    """client_verify_commitment with the columns' digests and paths in place
+    of the columns."""
+    if (required_for_soundness < len(local_leaves)
+            or required_for_soundness < len(requested)
+            or required_for_soundness < len(received_digests)):
+        raise VerificationError("too many columns supplied")
+    verify_column_leaves(local_leaves, requested, received_digests)
+    verify_column_paths_without_full_columns(root, requested, received_digests, received_paths)
 
 
 # -- verifiable polynomial evaluation ---------------------------------------
@@ -285,3 +324,7 @@ def evaluate_field_polynomial_at_point_with_elevated_degree(
         power = (power * point) % p
     return result
 
+
+def vector_multiply(a: list[int], b: list[int], spec: FieldSpec = POS_FIELD) -> int:
+    p = spec.modulus
+    return sum(x * y for x, y in zip(a, b)) % p

@@ -366,6 +366,9 @@ class ColumnDigestAccumulator:
         self._cvs = torch.empty((self.width, 0, 8), dtype=torch.int32, device=self.device)
         self.finalized = False
 
+    def get_width(self) -> int:
+        return self.width
+
     def update(self, encoded_row) -> None:
         """encoded_row: (n_encoded_cols, L), one encoded row."""
         self.update_batch(limb_tensor(encoded_row)[None])
@@ -443,6 +446,9 @@ class ColumnDigestAccumulator:
         if self.columns is not None:
             raise ValueError("a Merkle tree needs all columns")
         return MerkleTree.new(self.finalize())
+
+    def finalize_to_commit(self) -> bytes:
+        return self.finalize_to_merkle_tree().root()
 
 # -- standalone merkle tree (merkle_tree.rs) --------------------------------
 
@@ -729,6 +735,12 @@ class EncodedFileWriter:
         self._close_file()
         return self.metadata(), tree
 
+    def finalize_to_column_digests(self) -> tuple[EncodedFileMetadata, list[bytes]]:
+        self._drain()
+        digests = self.accumulator.get_column_digests()
+        self._close_file()
+        return self.metadata(), digests
+
     @classmethod
     def convert_unencoded_file(cls, unencoded_path: Path, encoded_path: Path,
                                tree_path: Path | None, meta_path: Path | None,
@@ -792,6 +804,10 @@ class EncodedFileReader:
         return _read_columns(self._file, self.n_cols, self.row_capacity * W, start * W,
                              (start + count) * W)
 
+    def get_encoded_row(self, row: int) -> np.ndarray:
+        """(n_cols, L) uint32 limbs of one encoded row."""
+        return self.get_encoded_rows(row, 1)[0]
+
     def get_encoded_rows(self, start: int, count: int) -> np.ndarray:
         """(count, n_cols, L) uint32 limbs, one strided gather."""
         out = self._column_bytes(start, count).reshape(self.n_cols, count, -1)
@@ -847,6 +863,17 @@ class EncodedFileReader:
                     self._file.seek(c * stride + row * W)
                     self._file.write(by_col[c].tobytes())
         self.rows_written = max(self.rows_written, row + k)
+
+    def replace_encoded_row(self, row: int, encoded_row) -> None:
+        """Write one (n_cols, L) encoded row; row <= rows_written."""
+        self.replace_encoded_rows(row, limb_tensor(encoded_row)[None])
+
+    def replace_row_with_decoded_bytes(self, row: int, data: bytes) -> None:
+        """Encode at most one row of data bytes (K1 on CUDA; a short row is
+        zero-padded) and write it as encoded row `row`."""
+        if len(data) > self.n_per_row * self.spec.data_byte_capacity:
+            raise ValueError(f"{len(data)} bytes are more than one row holds")
+        self.replace_encoded_rows(row, self.encode_data_rows(data))
 
     def encode_data_rows(self, data: bytes) -> torch.Tensor:
         """:func:`encode_data` at the reader's dims, on its device."""
