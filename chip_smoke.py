@@ -334,11 +334,15 @@ def check_kernels(res: Results, dev) -> None:
 
 def check_ntt_passes(res: Results, dev) -> None:
     """K1 against ntt_plain and K4's inverse against intt_plain at the edges
-    of their pass plan, bit-exact, on five fields: n = 2^10 (one pass, several
-    rows a block), 2^11 (two), 2^20 (two of ten stages) and 2^21 (three), with
-    a ragged n_nonzero for K1."""
+    of their pass plan, bit-exact, on five fields (W = 2, 4, 6, 8): n = 2^10
+    (one pass, several rows a block), 2^11 (two), 2^20 (two of ten stages)
+    and 2^21 (three), with a ragged n_nonzero for K1; and K1's entry on rows
+    as stored (ntt_rows), int32 and 16-bit rows of a ragged width between
+    n_nonzero and n, with and without its 16-bit output, against the same
+    plain transform (the values past n_nonzero are read as zero either way)."""
     import torch
     from lcpc_proof_of_storage_tpu_torch.fields import FT63, FT127, FT191, FT253_192, FT255
+    from lcpc_proof_of_storage_tpu_torch.fields.limb import narrow_limbs
     from lcpc_proof_of_storage_tpu_torch.ops import ntt
 
     gen = torch.Generator(device=dev)
@@ -347,18 +351,32 @@ def check_ntt_passes(res: Results, dev) -> None:
         n = 1 << log_n
         batch = 3 if log_n < 20 else 1
         nnz = n * 3 // 8 + 5
+        width = n * 5 // 8 + 3
         for spec in (FT63, FT127, FT191, FT255, FT253_192):
             tables = ntt.NttTables(spec, n).to(dev)
             x = random_limbs_device(gen, (batch, n), spec, dev)
+            want = ntt.ntt_plain(x, spec, nnz, tables)
             res.compare("ntt", f"{spec.name} batch={batch} n=2^{log_n} n_nonzero={nnz}",
-                        ntt.ntt(x, spec, nnz, tables), ntt.ntt_plain(x, spec, nnz, tables),
-                        quiet=True)
+                        ntt.ntt(x, spec, nnz, tables), want, quiet=True)
+            rows = x[:, :width].contiguous()
+            for r in (rows, narrow_limbs(rows)):
+                what = (f"{spec.name} {r.dtype} rows of {width}, batch={batch} n=2^{log_n} "
+                        f"n_nonzero={nnz}")
+                out16 = torch.empty(want.shape, dtype=torch.int16, device=dev)
+                res.compare("ntt", what, ntt.ntt_rows(r, spec, n, nnz, tables, out16=out16),
+                            want, quiet=True)
+                res.compare("ntt", f"{what}: its 16-bit output", out16, narrow_limbs(want),
+                            quiet=True)
+                res.compare("ntt", f"{what}, no 16-bit output",
+                            ntt.ntt_rows(r, spec, n, nnz, tables), want, quiet=True)
             res.compare("ntt_inverse", f"{spec.name} batch={batch} n=2^{log_n}",
                         ntt.intt(x, spec, tables), ntt.intt_plain(x, spec, tables), quiet=True)
-            del x, tables
+            del x, tables, want, rows, out16
             free_device(dev)
         say(f"kernel ntt and ntt_inverse at n=2^{log_n} ({plan_text(n)}), batch {batch}, "
-            f"n_nonzero {nnz} for the forward, five fields: bit-exact against plain")
+            f"n_nonzero {nnz} for the forward, five fields: bit-exact against plain; ntt_rows "
+            f"on int32 and 16-bit rows of {width}, with and without the 16-bit output: "
+            f"bit-exact against the same plain transform")
 
 
 def check_expander(res: Results, dev) -> None:
@@ -1445,17 +1463,54 @@ def free_device(dev) -> None:
 
 
 def check_ntt_at(res: Results, enc, rows16, what: str) -> None:
-    """K1, through the Ligero encode the streamed path calls, on (b, n_per_row,
-    L) 16-bit coefficient rows of that path, against ntt_plain on the card at
-    the path's n, bit-exact."""
-    from lcpc_proof_of_storage_tpu_torch.fields.limb import widen_limbs
+    """K1, through the Ligero encode and through encode_stored as the streamed
+    path calls it (the 16-bit rows read as stored, the 16-bit codewords
+    written by the kernel), on (b, n_per_row, L) 16-bit coefficient rows of
+    that path, against ntt_plain on the card at the path's n, bit-exact."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch.fields.limb import narrow_limbs, widen_limbs
     from lcpc_proof_of_storage_tpu_torch.ops import ntt
     rows = widen_limbs(rows16)
     b, npr, L = rows.shape
     padded = rows.new_zeros((b, enc.n_cols, L))
     padded[:, :npr] = rows
-    res.compare("ntt", f"{what}: {b} rows, n={enc.n_cols} n_nonzero={npr}", enc.encode(rows),
-                ntt.ntt_plain(padded, enc.spec, npr, enc.tables(rows.device)))
+    want = ntt.ntt_plain(padded, enc.spec, npr, enc.tables(rows.device))
+    what = f"{what}: {b} rows, n={enc.n_cols} n_nonzero={npr}"
+    res.compare("ntt", what, enc.encode(rows), want)
+    out16 = torch.empty(want.shape, dtype=torch.int16, device=want.device)
+    res.compare("ntt", f"{what}, encode_stored of the 16-bit rows",
+                enc.encode_stored(rows16, out16), want)
+    res.compare("ntt", f"{what}, encode_stored's 16-bit codewords", out16, narrow_limbs(want))
+
+
+def time_ntt_rows(card: str, enc, rows16) -> None:
+    """K1 on one row batch of the streamed commit as that commit runs it: the
+    (b, n_per_row, L) 16-bit rows read at their width, the 16-bit codewords
+    written by the last pass (ntt_rows with out16), against the sequence it
+    replaced there (widen, zero pad to n_cols, K1, narrow into the kept
+    rows), CUDA-event means in turns, beside ntt_cost's bound."""
+    import torch
+    from lcpc_proof_of_storage_tpu_torch.fields.limb import narrow_limbs, widen_limbs
+    from lcpc_proof_of_storage_tpu_torch.ops import ntt
+    from lcpc_proof_of_storage_tpu_torch.utils.profiling import bench_kernel, ntt_cost
+    b, npr, L = rows16.shape
+    n, spec, tables = enc.n_cols, enc.spec, enc.tables(rows16.device)
+    kept = torch.empty((b, n, L), dtype=torch.int16, device=rows16.device)
+
+    def replaced():
+        padded = torch.zeros((b, n, L), dtype=torch.int32, device=rows16.device)
+        padded[:, :npr] = widen_limbs(rows16)
+        kept.copy_(narrow_limbs(ntt.ntt(padded, spec, npr, tables)))
+
+    def rows():
+        ntt.ntt_rows(rows16, spec, n, npr, tables, out16=kept)
+
+    r1, k1, k2, r2 = (bench_kernel(f, 5) for f in (replaced, rows, rows, replaced))
+    skip = (n // (1 << (npr - 1).bit_length())).bit_length() - 1
+    bound, by = ntt_cost(b, n, L, n.bit_length() - 1 - skip).bound_ms()
+    say(f"time [{card}]: ntt_rows ({b}, {npr}, {L}) int16 rows -> ({b}, {n}, {L}) int32 and "
+        f"int16 {spec.name}, {plan_text(n)}: kernel {k1:.4f}/{k2:.4f} ms, the widen / pad / K1 "
+        f"/ narrow it replaced {r1:.4f}/{r2:.4f} ms, bound {bound:.4f} ms ({by})")
 
 
 def synthetic_constants() -> dict:
@@ -1681,6 +1736,7 @@ def streamed_device(res: Results, dev, card: str) -> None:
     free_device(dev)
     check_ntt_at(res, enc, coeffs.reshape(n_rows, n_per_row, -1)[:2],
                  f"the streamed 2^{ST_LOG2_DEVICE} rows")
+    time_ntt_rows(card, enc, coeffs.reshape(n_rows, n_per_row, -1)[:32])
     del coeffs
     free_device(dev)
 

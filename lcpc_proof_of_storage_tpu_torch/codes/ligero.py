@@ -5,7 +5,8 @@ dimension solver and soundness formulas (lcpc-ligero-pc/src/lib.rs).  The
 row transform is the encoding's ``ntt`` route, one of ``ops.ntt.ROUTES``:
 
   * ``"stages"`` (default): encode by :func:`ops.ntt.ntt` (kernel K1 on
-    CUDA), decode by :func:`ops.ntt.intt` (K4's inverse entry);
+    CUDA), 16-bit rows by :func:`ops.ntt.ntt_rows` (K1 reading them as
+    stored), decode by :func:`ops.ntt.intt` (K4's inverse entry);
   * ``"four_step"``: encode by :func:`ops.ntt.ntt_four_step` (the JAX
     package's ``LCPC_NTT_FOURSTEP=1``), decode by :func:`ops.ntt.intt`, as
     the reference's four-step is forward only;
@@ -38,7 +39,8 @@ import torch
 
 from ..core.encoding import LcEncoding, n_degree_tests, next_power_of_two
 from ..fields.field import FieldSpec
-from ..ops.ntt import ROUTES, NttTables, intt, ntt, ntt_four_step, ntt_fused_small
+from ..fields.limb import narrow_limbs, widen_limbs
+from ..ops.ntt import ROUTES, NttTables, intt, ntt, ntt_four_step, ntt_fused_small, ntt_rows
 from ..parallel.cross_chip_ntt import cross_chip_ntt
 from ..parallel.mesh import gather, scatter
 
@@ -149,24 +151,41 @@ class LigeroEncoding(LcEncoding):
             self._tables_on[device] = copy.deepcopy(self.ntt_tables).to(device)
         return self._tables_on[device]
 
-    def encode(self, rows: torch.Tensor) -> torch.Tensor:
+    def encode(self, rows: torch.Tensor, out16: torch.Tensor | None = None) -> torch.Tensor:
         """NTT of (batch, width, L) coefficient rows zero-padded to n_cols, on
         the rows' device (under a mesh: sharded, :meth:`encode_wide`, and
         gathered back).  Every one of the `width` coefficients enters the
-        codeword, so an over-long proof row fails the degree check."""
+        codeword, so an over-long proof row fails the degree check.  Rows of
+        16-bit limbs stored as int16 go to K1 as they are on the ``stages``
+        route with no mesh (:func:`ops.ntt.ntt_rows`: no widened copy, no
+        pad), and are widened first elsewhere.  Given ``out16``, a (batch,
+        n_cols, L) int16 tensor, the codewords are also written there as
+        16-bit limbs (by K1 itself on that route)."""
         batch, width, L = rows.shape
         if width > self.n_cols:
             raise ValueError(f"encode: rows of {width} coefficients, code has {self.n_cols}")
+        if rows.dtype == torch.int16:
+            if self.mesh is None and self.ntt == "stages":
+                return ntt_rows(rows, self.spec, self.n_cols, tables=self.tables(rows.device),
+                                out16=out16)
+            rows = widen_limbs(rows)
         if self.mesh is not None:
-            return gather(self.encode_wide(scatter(rows, self.mesh, 1, self.n_cols)),
-                          rows.device, 1)
-        padded = rows.new_zeros((batch, self.n_cols, L))
-        padded[:, :width] = rows
-        if self.ntt == "four_step":
-            return ntt_four_step(padded, self.spec, width, self.tables(rows.device))
-        if self.ntt == "fused_small":
-            return ntt_fused_small(padded, self.spec, width, self.tables(rows.device))
-        return ntt(padded, self.spec, width, self.tables(rows.device))
+            out = gather(self.encode_wide(scatter(rows, self.mesh, 1, self.n_cols)),
+                         rows.device, 1)
+        else:
+            padded = rows.new_zeros((batch, self.n_cols, L))
+            padded[:, :width] = rows
+            route = {"four_step": ntt_four_step, "fused_small": ntt_fused_small}.get(self.ntt, ntt)
+            out = route(padded, self.spec, width, self.tables(rows.device))
+        if out16 is not None:
+            out16.copy_(narrow_limbs(out))
+        return out
+
+    def encode_stored(self, rows: torch.Tensor,
+                      out16: torch.Tensor | None = None) -> torch.Tensor:
+        """``LcEncoding.encode_stored`` is :meth:`encode` here, which takes
+        16-bit rows as stored and writes out16 itself."""
+        return self.encode(rows, out16)
 
     def encode_wide(self, blocks: list[torch.Tensor]) -> list[torch.Tensor]:
         """The cross-device NTT of the column blocks (``LcEncoding``)."""

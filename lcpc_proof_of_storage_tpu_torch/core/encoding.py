@@ -16,6 +16,7 @@ import copy
 import torch
 
 from ..fields.field import FieldSpec
+from ..fields.limb import narrow_limbs, widen_limbs
 
 LABEL_DT = b"$l//DT"
 LABEL_PR = b"$l//PR"
@@ -77,6 +78,19 @@ class LcEncoding(abc.ABC):
         L) codewords, on the rows' device (through the mesh, where the
         encoding has one).  Each code decides how it reads the coefficients
         past n_per_row."""
+
+    def encode_stored(self, rows: torch.Tensor,
+                      out16: torch.Tensor | None = None) -> torch.Tensor:
+        """:meth:`encode` of coefficient rows as a commitment stores them (int32
+        limbs, or 16-bit limbs as int16) -> the (batch, n_cols, L) int32
+        codewords; given ``out16``, a (batch, n_cols, L) int16 tensor, they are
+        also written there as 16-bit limbs (the streamed commit's kept
+        matrix).  A code whose kernel reads and writes 16-bit limbs itself
+        overrides this."""
+        comm = self.encode(widen_limbs(rows))
+        if out16 is not None:
+            out16.copy_(narrow_limbs(comm))
+        return comm
 
     @abc.abstractmethod
     def get_dims(self, length: int) -> tuple[int, int, int]:

@@ -155,12 +155,6 @@ class DeviceRows(_Rows):
     def rows(self, r0: int, r1: int) -> torch.Tensor:
         return self.data[r0:r1]
 
-    def put(self, r0: int, r1: int, rows16: torch.Tensor) -> None:
-        self.data[r0:r1] = rows16
-
-    def flush(self) -> None:
-        pass
-
     def take(self, cols: list[int]) -> torch.Tensor:
         """(n_rows, k, L) int32 limbs of the given columns, on the device."""
         cidx = torch.tensor(cols, dtype=torch.int64, device=self.device)

@@ -9,9 +9,12 @@ only to hash its columns and to serve opened columns to prove, so each row
 batch is encoded by the encoding's kernel, its part of every column message
 is hashed into Blake3 chunk chaining values (K2's chunk-CV entry), and the
 batch is kept on the device as 16-bit limbs, copied to host memory, or
-dropped.  Batches end on 1024-byte chunk boundaries (but the last), so the
-chunk CVs are those of the one-shot column hash and K2's merge entry gives
-the same leaves: roots and proofs are bit-identical to :func:`commit`'s.
+dropped.  The batch goes to the encoding as stored and the 16-bit rows come
+back from it (``LcEncoding.encode_stored``): on Ligero's ``stages`` route
+K1 reads and writes them itself, with no widened copy, pad or narrowing.
+Batches end on 1024-byte chunk boundaries (but the last), so the chunk CVs
+are those of the one-shot column hash and K2's merge entry gives the same
+leaves: roots and proofs are bit-identical to :func:`commit`'s.
 
 Prove works from such a commitment too (core/storage.py, the reference's
 collapse_streamed and open_columns_streamed): the collapse runs over row
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from ..fields.field import FieldSpec
-from ..fields.limb import narrow_limbs, widen_limbs
+from ..fields.limb import narrow_limbs
 from ..ops.blake3 import batch_chunks, chunk_cvs, merge_cvs
 from .commit import LcCommit, commit, default_device, merkle_tree_device
 from .encoding import LcEncoding
@@ -205,17 +208,23 @@ def commit_streamed(coeffs, enc: LcEncoding, target_batch_rows: int | None = Non
             rows = coeffs.rows(r0, r1, n_per_row, spec, device)
         else:
             rows = src.rows(r0, r1)
-        comm_b = enc.encode(widen_limbs(rows))             # (rows_b, n_cols, L) int32
+        if keep_comm == "device":
+            out16 = dst.data[r0:r1]
+        elif keep_comm:
+            out16 = torch.empty((r1 - r0, n_cols, L), dtype=torch.int16, device=device)
+        else:
+            out16 = None
+        comm_b = enc.encode_stored(rows, out16)             # (rows_b, n_cols, L) int32
         first = r0 == 0
         k, span = batch_chunks(r1 - r0, spec, first)
         if r1 < n_rows and span % 1024:
             raise RuntimeError(f"rows {r0}..{r1} end mid-chunk")
         chunk_cvs(comm_b, spec, cvs, chunk0, first)
-        if dst is not None:
-            dst.put(r0, r1, narrow_limbs(comm_b))
-        del comm_b, rows
+        if keep_comm is True:
+            dst.put(r0, r1, out16)
+        del comm_b, rows, out16
         chunk0 += k
-    if dst is not None:
+    if keep_comm is True:
         dst.flush()
     if chunk0 != total_chunks:
         raise RuntimeError(f"batches covered {chunk0} chunks of {total_chunks}")

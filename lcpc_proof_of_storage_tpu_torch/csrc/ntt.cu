@@ -47,16 +47,27 @@
 // >= 6 holds ptxas to 80 registers at W = 8, so three blocks (24 warps) fit
 // an SM by registers and by shared memory (198 KB of 228); at W <= 4, four.
 //
-// The first pass's prologue reads the limbs of the natural-order row and
-// packs them into words: tile id c (of n / 2^k in a row) is the tile whose
+// The first pass's prologue reads the natural-order rows as they are stored:
+// rows of n_in values (n_nonzero <= n_in <= n; n_in = n but for
+// lcpc_ntt_forward_rows), each value 2W int32 limbs, packed into words, or 2W
+// 16-bit limbs.  The 16-bit storage of a value is its W little-endian words
+// byte for byte (limbs 2w and 2w + 1 are the halves of word w: what
+// ops/ntt.py pack_words makes of them), so those are loaded as words, with
+// no mask or shift.  Tile id c (of n / 2^k in a row) is the tile whose
 // elements are x[c + u * n / 2^k], u < 2^k, placed at bit-reversed slots
 // rev_k(u) (so the block's T tiles read T consecutive elements), and it
 // reads only the np2(n_nonzero) head: the skip = log2(n / np2(n_nonzero))
 // pruned stages become a duplicating gather (slot j holds x[rev(j & ~(2^skip
-// - 1))], zero at or past n_nonzero), as KT and ops/ntt.py _skip_for do.
-// Each pass between writes words in place to the (batch, n, W) work buffer;
-// the last pass's epilogue unpacks to 16-bit limbs (times n^-1 for the
-// inverse) in natural order.
+// - 1))], zero at or past n_nonzero, made in registers: nothing past a row's
+// n_in values is read, so the rows need no zero pad), as KT and ops/ntt.py
+// _skip_for do.  Each pass between writes words in place to the (batch, n,
+// W) work buffer; the last pass's epilogue unpacks to int32 limbs (times
+// n^-1 for the inverse) in natural order and, given out16, stores each value
+// a second time as its W words: the (batch, n, L) 16-bit rows that the
+// streamed commit keeps (core/streamed.py), which may be a row slice of a
+// larger matrix.  Before, the streamed commit widened its 16-bit rows, wrote
+// them into a zeroed int32 pad of width n and narrowed K1's output with two
+// shifts, a subtract and a cast, each a pass over the batch in device memory.
 //
 // What bounds it on the H100: the operations.  At the Ligero 2^20 ft255
 // commit, (128, 32768, 16) with n_nonzero 8192, 13 stages of 2^21
@@ -75,8 +86,12 @@
 // at that commit's shape (the per-stage design: 6.39 ms), 0.43 ms of it the
 // last pass alone; 7.31 ms on a (32, 2^20, 16) batch of the 2^29 commit
 // (64.4 ms), bound 2.82 ms; K4's inverse 0.89 ms at (128, 32768, 16)
-// (6.44 ms), bound 0.30 ms.  ptxas: 80, 80, 56 and 32 registers at W = 8,
-// 6, 4, 2, and at W = 8 an 8-byte spill under the three-block bound.
+// (6.44 ms), bound 0.30 ms.  lcpc_ntt_forward_rows on a (32, 2^19, 16) batch
+// of the 2^28 streamed commit, rows of 2^17 16-bit values in, int32 and
+// 16-bit limbs out: 3.56-3.63 ms, where the widen, pad, K1 and narrow it
+// replaced took 7.72-7.75 ms; bound 1.33 ms (operations).  ptxas: 80, 80, 58
+// and 32 registers at W = 8, 6, 4, 2, and at W = 8 an 8-byte spill under the
+// three-block bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -96,12 +111,15 @@ constexpr int kDefaultSmem = 48 * 1024;
 struct Pass {
     const void* in;       // limbs of the natural-order rows (in_limbs), else words
     void* out;            // limbs (out_limbs), else words; may be `in`
+    void* out16;          // the last pass: also the values as 16-bit limbs here, or null
     const uint32_t* tw;   // (n/2, W) Montgomery words of w^j (or w^-j)
     int log_n, s_lo, s_hi;
     int s_first;          // the first stage run: stages [s_first, s_hi), s_first >= s_lo
     int log_t;            // log2 of the tiles a block holds
     int64_t tiles;        // batch * n / 2^(s_hi - s_lo)
     int in_limbs;         // the first pass: the prologue's gather
+    int in16;             // ... of 16-bit limbs (a value's W words), else of int32 limbs
+    int64_t n_in;         // ... from rows of n_in values (n_nonzero <= n_in <= n)
     int skip, n_nonzero;  // the prologue's pruned stages and zero tail
     int out_limbs;
     int scale;            // multiply by `s` (n^-1 in Montgomery form) before unpacking
@@ -135,7 +153,6 @@ ntt_pass(Pass a, Mod<W> m, Words<W> s) {
         // in its row, placed at slot rev_k(u) and its 2^skip' - 1 successors
         const int dup = a.skip < k ? a.skip : k;
         const int64_t np2_mask = ((int64_t)1 << (a.log_n - a.skip)) - 1;
-        const int32_t* x = static_cast<const int32_t*>(a.in);
         for (int e = threadIdx.x; e < (T << (k - dup)); e += blockDim.x) {
             const int t = e & (T - 1), u = e >> a.log_t;
             if (t >= here) continue;
@@ -143,7 +160,11 @@ ntt_pass(Pass a, Mod<W> m, Words<W> s) {
             const int64_t src = ((int64_t)u << log_tpr | c) & np2_mask;
             uint32_t v[W];
             if (src < a.n_nonzero) {
-                load_limbs<W>(v, x + (tile_row(t) * n + src) * (2 * W));
+                const int64_t at = tile_row(t) * a.n_in + src;
+                if (a.in16)
+                    load_words<W>(v, static_cast<const uint32_t*>(a.in) + at * W);
+                else
+                    load_limbs<W>(v, static_cast<const int32_t*>(a.in) + at * (2 * W));
             } else {
 #pragma unroll
                 for (int w = 0; w < W; ++w) v[w] = 0;
@@ -244,9 +265,10 @@ ntt_pass(Pass a, Mod<W> m, Words<W> s) {
 #pragma unroll
             for (int w = 0; w < W; ++w) v[w] = y[w];
         }
-        if (a.out_limbs)
+        if (a.out_limbs) {
             store_limbs<W>(static_cast<int32_t*>(a.out) + g * (2 * W), v);
-        else
+            if (a.out16) store_words<W>(static_cast<uint32_t*>(a.out16) + g * W, v);
+        } else
             store_words<W>(static_cast<uint32_t*>(a.out) + g * W, v);
     }
 }
@@ -259,13 +281,16 @@ inline void pass_group(int log_n, int g, int* lo, int* hi) {
     *hi = *lo + q + (g < r ? 1 : 0);
 }
 
-// every pass of a transform: the first reads `in` (limbs with the prologue's
-// gather, or words), the ones between work in place on `work`, the last writes
-// `out` as limbs (times n^-1 when `scale` is given); stages from `start` on
+// every pass of a transform: the first reads `in` (int32 or, with in16, 16-bit
+// limbs of rows of n_in values with the prologue's gather, or words), the ones
+// between work in place on `work`, the last writes `out` as limbs (times n^-1
+// when `scale` is given) and, if given, `out16` as 16-bit limbs; stages from
+// `start` on
 template <int W>
-int ntt_passes(const void* in, int32_t* out, uint32_t* work, const uint32_t* tw, int batch,
-               int log_n, int start, int in_limbs, int skip, int n_nonzero, const Mod<W>& m,
-               const Words<W>* scale, cudaStream_t stream) {
+int ntt_passes(const void* in, int32_t* out, uint32_t* out16, uint32_t* work,
+               const uint32_t* tw, int batch, int log_n, int start, int in_limbs, int in16,
+               int64_t n_in, int skip, int n_nonzero, const Mod<W>& m, const Words<W>* scale,
+               cudaStream_t stream) {
     const int P = (log_n + kMaxStages - 1) / kMaxStages;
     for (int g = 0; g < P; ++g) {
         int lo, hi;
@@ -279,12 +304,14 @@ int ntt_passes(const void* in, int32_t* out, uint32_t* work, const uint32_t* tw,
         Pass a;
         a.in = first && in_limbs ? in : work;
         a.out = last ? (void*)out : (void*)work;
+        a.out16 = last ? (void*)out16 : nullptr;
         a.tw = tw;
         a.log_n = log_n, a.s_lo = lo, a.s_hi = hi;
         a.s_first = start > lo ? start : lo;
         a.log_t = log_t;
         a.tiles = tiles;
         a.in_limbs = first && in_limbs;
+        a.in16 = in16, a.n_in = n_in;
         a.skip = skip, a.n_nonzero = n_nonzero;
         a.out_limbs = last;
         a.scale = last && scale != nullptr;
@@ -314,19 +341,19 @@ inline int skip_for(int log_n, int n_nonzero) {
 }
 
 template <int W>
-int ntt_forward(const int32_t* in, int32_t* out, uint32_t* work, const uint32_t* tw,
-                int batch, int log_n, int n_nonzero, const uint32_t* p_host,
-                cudaStream_t stream) {
+int ntt_forward(const void* in, int32_t* out, uint32_t* out16, uint32_t* work,
+                const uint32_t* tw, int batch, int log_n, int64_t n_in, int n_nonzero,
+                int in16, const uint32_t* p_host, cudaStream_t stream) {
     const int skip = skip_for(log_n, n_nonzero);
-    return ntt_passes<W>(in, out, work, tw, batch, log_n, skip, 1, skip, n_nonzero,
-                         make_mod<W>(p_host), nullptr, stream);
+    return ntt_passes<W>(in, out, out16, work, tw, batch, log_n, skip, 1, in16, n_in, skip,
+                         n_nonzero, make_mod<W>(p_host), nullptr, stream);
 }
 
 template <int W>
 int ntt_stages(uint32_t* work, int32_t* out, const uint32_t* tw, int batch, int log_n,
                int s0, const uint32_t* p_host, cudaStream_t stream) {
-    return ntt_passes<W>(work, out, work, tw, batch, log_n, s0, 0, 0, 1 << log_n,
-                         make_mod<W>(p_host), nullptr, stream);
+    return ntt_passes<W>(work, out, nullptr, work, tw, batch, log_n, s0, 0, 0, 1 << log_n, 0,
+                         1 << log_n, make_mod<W>(p_host), nullptr, stream);
 }
 
 template <int W>
@@ -335,13 +362,40 @@ int ntt_inverse(const int32_t* in, int32_t* out, uint32_t* work, const uint32_t*
                 cudaStream_t stream) {
     Words<W> s;
     for (int i = 0; i < W; ++i) s.w[i] = n_inv_mont[i];
-    return ntt_passes<W>(in, out, work, tw_inv, batch, log_n, 0, 1, 0, 1 << log_n,
-                         make_mod<W>(p_host), &s, stream);
+    return ntt_passes<W>(in, out, nullptr, work, tw_inv, batch, log_n, 0, 1, 0, 1 << log_n, 0,
+                         1 << log_n, make_mod<W>(p_host), &s, stream);
 }
 
 }  // namespace
 
 extern "C" {
+
+// in: (batch, n_in, 2W) int32 limbs or, with in16, (batch, n_in, 2W) 16-bit limbs,
+// read as zero at or past n_nonzero (n_nonzero <= n_in <= 2^log_n); out:
+// (batch, 2^log_n, 2W) int32 limbs; out16: null, or (batch, 2^log_n, 2W) 16-bit
+// limbs that the last pass also writes; work, tw, p_host: as lcpc_ntt_forward's.
+// Returns the first CUDA error of the passes' launches (0 on success).
+int lcpc_ntt_forward_rows(const void* in, void* out, void* out16, void* work, const void* tw,
+                          int batch, int log_n, int n_in, int n_nonzero, int in16, int W,
+                          const void* p_host, void* stream) {
+    if (batch <= 0 || log_n < 1 || log_n > 30 || n_in < 1 || n_in > (1 << log_n) ||
+        n_nonzero < 0 || n_nonzero > n_in)
+        return (int)cudaErrorInvalidValue;
+    auto o = static_cast<int32_t*>(out);
+    auto o16 = static_cast<uint32_t*>(out16);
+    auto wk = static_cast<uint32_t*>(work);
+    auto t = static_cast<const uint32_t*>(tw);
+    auto p = static_cast<const uint32_t*>(p_host);
+    auto st = static_cast<cudaStream_t>(stream);
+    const int nz = n_nonzero;
+    switch (W) {
+        case 2: return ntt_forward<2>(in, o, o16, wk, t, batch, log_n, n_in, nz, in16, p, st);
+        case 4: return ntt_forward<4>(in, o, o16, wk, t, batch, log_n, n_in, nz, in16, p, st);
+        case 6: return ntt_forward<6>(in, o, o16, wk, t, batch, log_n, n_in, nz, in16, p, st);
+        case 8: return ntt_forward<8>(in, o, o16, wk, t, batch, log_n, n_in, nz, in16, p, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
 
 // in, out: (batch, 2^log_n, 2W) int32 limbs; work: (batch, 2^log_n, W) words;
 // tw: (2^(log_n-1), W) words of w^j * 2^(32W) mod p; p_host: W host words of p.
@@ -349,19 +403,8 @@ extern "C" {
 int lcpc_ntt_forward(const void* in, void* out, void* work, const void* tw, int batch,
                      int log_n, int n_nonzero, int W, const void* p_host, void* stream) {
     if (batch <= 0 || log_n < 1 || log_n > 30) return (int)cudaErrorInvalidValue;
-    auto i = static_cast<const int32_t*>(in);
-    auto o = static_cast<int32_t*>(out);
-    auto wk = static_cast<uint32_t*>(work);
-    auto t = static_cast<const uint32_t*>(tw);
-    auto p = static_cast<const uint32_t*>(p_host);
-    auto st = static_cast<cudaStream_t>(stream);
-    switch (W) {
-        case 2: return ntt_forward<2>(i, o, wk, t, batch, log_n, n_nonzero, p, st);
-        case 4: return ntt_forward<4>(i, o, wk, t, batch, log_n, n_nonzero, p, st);
-        case 6: return ntt_forward<6>(i, o, wk, t, batch, log_n, n_nonzero, p, st);
-        case 8: return ntt_forward<8>(i, o, wk, t, batch, log_n, n_nonzero, p, st);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return lcpc_ntt_forward_rows(in, out, nullptr, work, tw, batch, log_n, 1 << log_n,
+                                 n_nonzero, 0, W, p_host, stream);
 }
 
 // in, out: (batch, 2^log_n, 2W) int32 limbs; work: (batch, 2^log_n, W) words;

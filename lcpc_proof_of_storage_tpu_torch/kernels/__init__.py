@@ -146,6 +146,11 @@ class TreeKernel(Kernel):
 
 # csrc/ntt.cu: in, out, work, tw, batch, log_n, n_nonzero, W, p_host, stream
 NTT_FORWARD = Kernel("lcpc_ntt_forward", [P, P, P, P, I, I, I, I, P, P])
+# csrc/ntt.cu: in, out, out16, work, tw, batch, log_n, n_in, n_nonzero, in16, W, p_host,
+# stream.  K1 on rows as they are stored (int32 or 16-bit limbs, n_in wide), writing
+# the 16-bit rows too where out16 is given: counted as K1.
+NTT_FORWARD_ROWS = Kernel("lcpc_ntt_forward_rows", [P, P, P, P, P, I, I, I, I, I, I, P, P],
+                          counts_as=NTT_FORWARD)
 # csrc/ntt.cu: in, out, work, tw_inv, batch, log_n, W, p_host, n_inv_mont, stream
 NTT_INVERSE = Kernel("lcpc_ntt_inverse", [P, P, P, P, I, I, I, P, P, P])
 # csrc/ntt.cu: work, out, tw, batch, log_n, s0, W, p_host, stream.  K1's own passes

@@ -13,7 +13,9 @@ inverse gives the coefficients back from the evaluations.
 :func:`ntt_plain` / :func:`intt_plain`, a CUDA tensor to the kernel, which
 runs the radix-2 DIT stages in two passes over device memory for n up to
 2^20 (:func:`ntt_pass_plan`; :func:`ntt_passes_plain` runs the same passes
-tile by tile in plain PyTorch).
+tile by tile in plain PyTorch).  :func:`ntt_rows` is K1 on rows as they are
+stored: int32 or 16-bit limbs, narrower than n, and the 16-bit copy of the
+output written by the kernel too (the streamed Ligero commit's batches).
 :func:`encode_rows` and :func:`decode_rows` are the Ligero row encode and
 its inverse built on them.
 
@@ -56,7 +58,7 @@ import torch
 
 from .. import kernels
 from ..fields.field import FieldSpec, ints_to_limbs
-from ..fields.limb import LimbField, limb_field, widen_limbs
+from ..fields.limb import LimbField, limb_field, narrow_limbs, widen_limbs
 from ..utils.profiling import KernelCost, modmul_cost, tile_cost
 
 
@@ -381,6 +383,85 @@ def ntt(x: torch.Tensor, spec: FieldSpec, n_nonzero: int | None = None,
         raise ValueError(f"ntt: no kernel for device {x.device}")
     n_nonzero = _check_args(x, spec, n_nonzero)
     return _ntt_cuda(x, spec, n_nonzero, _tables_for(spec, x.shape[1], x, tables))
+
+
+def _check_rows_args(x: torch.Tensor, spec: FieldSpec, n: int, n_nonzero: int | None,
+                     out16: torch.Tensor | None) -> int:
+    L = spec.num_limbs16
+    if x.dim() != 3 or x.shape[-1] != L:
+        raise ValueError(f"ntt_rows: expected (batch, width, {L}), got {tuple(x.shape)}")
+    if x.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"ntt_rows: expected int16 or int32 limbs, got {x.dtype}")
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"ntt_rows: n must be a power of two >= 2, got {n}")
+    batch, width, _ = x.shape
+    if not 1 <= width <= n:
+        raise ValueError(f"ntt_rows: rows of {width} values, transform of {n}")
+    n_nonzero = width if n_nonzero is None else n_nonzero
+    if not 0 <= n_nonzero <= width:
+        raise ValueError(f"ntt_rows: n_nonzero {n_nonzero} outside [0, {width}]")
+    if out16 is not None:
+        if out16.dtype != torch.int16:
+            raise TypeError(f"ntt_rows: out16 must be int16, got {out16.dtype}")
+        if tuple(out16.shape) != (batch, n, L) or out16.device != x.device:
+            raise ValueError(f"ntt_rows: out16 must be ({batch}, {n}, {L}) on {x.device}, "
+                             f"got {tuple(out16.shape)} on {out16.device}")
+    return n_nonzero
+
+
+def _ntt_rows_cuda(x: torch.Tensor, n: int, n_nonzero: int, tables: NttTables,
+                   out16: torch.Tensor | None) -> torch.Tensor:
+    batch, width, L = x.shape
+    W = L // 2
+    kernels.check_cuda("ntt_rows", x, x.dtype)
+    if out16 is not None:
+        kernels.check_cuda("ntt_rows out16", out16, torch.int16)
+    if W not in (2, 4, 6, 8) or batch * n >= (1 << 31):
+        raise ValueError(f"ntt_rows kernel: unsupported shape {tuple(x.shape)} to n = {n}")
+    for t in (x, out16):        # a value's words move in 16-byte pieces, or 8 at W = 2, 6
+        if t is None:
+            continue
+        piece = 16 if t.dtype == torch.int32 or W % 4 == 0 else 8
+        if t.data_ptr() % piece:
+            raise ValueError(f"ntt_rows kernel: a tensor at {t.data_ptr():#x} is not "
+                             f"{piece}-byte aligned")
+    out = torch.empty((batch, n, L), dtype=torch.int32, device=x.device)
+    work = torch.empty((batch, n, W), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        kernels.NTT_FORWARD_ROWS(kernels.ptr(x), kernels.ptr(out),
+                                 None if out16 is None else kernels.ptr(out16),
+                                 kernels.ptr(work), kernels.ptr(tables.tw_mont), batch,
+                                 n.bit_length() - 1, width, n_nonzero,
+                                 int(x.dtype == torch.int16), W, kernels.ptr(tables.p_words),
+                                 kernels.stream_of(x))
+    return out
+
+
+def ntt_rows(x: torch.Tensor, spec: FieldSpec, n: int, n_nonzero: int | None = None,
+             tables: NttTables | None = None,
+             out16: torch.Tensor | None = None) -> torch.Tensor:
+    """Forward NTT of rows as they are stored: x is (batch, width, L) int32
+    limbs or 16-bit limbs as int16, width <= n, read as zero-padded to n and
+    as zero at or past ``n_nonzero`` (default: width) -> the (batch, n, L)
+    int32 evaluations.  Given ``out16``, a contiguous (batch, n, L) int16
+    tensor (a row slice of a larger one will do), they are also written there
+    as 16-bit limbs.  On CUDA, K1 reads the rows at their own width and its
+    last pass writes out16 (``csrc/ntt.cu lcpc_ntt_forward_rows``); on the
+    CPU, :func:`widen_limbs`, the zero pad, :func:`ntt_plain` and
+    :func:`narrow_limbs`."""
+    n_nonzero = _check_rows_args(x, spec, n, n_nonzero, out16)
+    tables = _tables_for(spec, n, x, tables)
+    if x.device.type == "cuda":
+        return _ntt_rows_cuda(x, n, n_nonzero, tables, out16)
+    if x.device.type != "cpu":
+        raise ValueError(f"ntt_rows: no kernel for device {x.device}")
+    batch, width, L = x.shape
+    padded = torch.zeros((batch, n, L), dtype=torch.int32)
+    padded[:, :width] = widen_limbs(x)
+    y = ntt_plain(padded, spec, n_nonzero, tables)
+    if out16 is not None:
+        out16.copy_(narrow_limbs(y))
+    return y
 
 
 def intt(x: torch.Tensor, spec: FieldSpec, tables: NttTables | None = None) -> torch.Tensor:

@@ -82,6 +82,8 @@ BOUNDS = {
     "K1 128x32768x16 n_nonzero 8192": (lambda: prof.ntt_cost(128, 32768, 16, 13),
                                        "0.252", "operations"),
     "K1 the 2^29 batch": (lambda: prof.ntt_cost(32, 1 << 20, 16, 18), "2.821", "operations"),
+    "K1 rows as stored, the 2^28 batch": (lambda: prof.ntt_cost(32, 1 << 19, 16, 17), "1.330",
+                                          "operations"),
     "KT pass A 128x128x256": (lambda: ntt.TileCall(_meta(128, 128, 256, 16),
                                                    _tables(1 << 15, "four_step"), 2, 8).cost(),
                               "0.120", "bytes"),

@@ -9,7 +9,10 @@
   streamed root and to the port's one-shot root, proof bytes equal to the
   reference's streamed proof, and the proofs verify under both packages;
 - the golden pins `streamed_boundary_root` and `streamed_proof_sha`, a
-  multi-chunk Brakedown streamed root, and the port's own synthetic pin.
+  multi-chunk Brakedown streamed root, and the port's own synthetic pin;
+- Ligero on two routes and Brakedown, every keep_comm mode: root and kept
+  16-bit matrix equal to the one-shot commit's; Ligero's batches reach the
+  encoding's encode as stored.
 
 All comparisons are exact.  The reference side runs ft63 (its ft255 graphs
 compile for tens of seconds each on the CPU); the port side also runs ft255
@@ -40,7 +43,7 @@ from lcpc_proof_of_storage_tpu_torch.core import commit as port
 from lcpc_proof_of_storage_tpu_torch.core import storage, streamed
 from lcpc_proof_of_storage_tpu_torch.crypto.transcript import Transcript
 from lcpc_proof_of_storage_tpu_torch.fields import FT63, FT253_192, FT255, ints_to_limbs
-from lcpc_proof_of_storage_tpu_torch.fields.limb import limb_field
+from lcpc_proof_of_storage_tpu_torch.fields.limb import limb_field, narrow_limbs
 from lcpc_proof_of_storage_tpu_torch.ops import blake3, collapse
 from lcpc_proof_of_storage_tpu_torch.ops.expander import SDIG_CODE_3, ExpanderEncoder
 from lcpc_proof_of_storage_tpu_torch.utils import serde
@@ -350,6 +353,73 @@ def test_brakedown_streamed_root_multi_chunk():
         port.prove(one, outer, enc, _tr(root)), spec)
     assert port.verify(root, outer, inner, proof, enc, _tr(root), device="cpu") == \
         _horner(coeffs, X, spec.modulus)
+
+
+def _kept_case_encoding(code):
+    """(spec, encoding, n_rows, target rows a batch): every case has at least
+    two Blake3 chunks a column and a ragged last batch."""
+    if code == "brakedown":
+        return FT63, BrakedownEncoding(ExpanderEncoder.build(32, 0, FT63, SDIG_CODE_3)), 300, 128
+    if code == "ligero-stages":
+        return FT255, LigeroEncoding(FT255, 4, 16), 70, 31
+    return FT63, LigeroEncoding(FT63, 4, 16, ntt="four_step"), 301, 100
+
+
+@pytest.mark.parametrize("form", ["uint16", "ints"])
+@pytest.mark.parametrize("keep_comm", [True, False, "device"])
+@pytest.mark.parametrize("code", ["ligero-stages", "ligero-four_step", "brakedown"])
+def test_streamed_kept_matrix_matches_one_shot(code, keep_comm, form):
+    """The streamed commit's root and kept 16-bit matrix (written by the
+    encoding's encode_stored: on Ligero's stages route, K1's own 16-bit
+    rows) equal the one-shot commit's root and the narrowing of its
+    matrix."""
+    spec, enc, n_rows, target = _kept_case_encoding(code)
+    npr = enc.get_dims(1)[1]
+    rng = np.random.default_rng(n_rows + len(code))
+    length = n_rows * npr - npr // 2                      # a ragged last row
+    coeffs = [int(v) % spec.modulus for v in rng.integers(0, 1 << 63, size=length)]
+    one = port.commit(coeffs, enc, device="cpu")
+    assert one.n_rows == n_rows
+    given = coeffs if form == "ints" else ints_to_limbs(coeffs, spec).astype(np.uint16)
+    st = streamed.commit_streamed(given, enc, target_batch_rows=target, keep_comm=keep_comm,
+                                  device="cpu")
+    assert len(streamed._row_batches(n_rows, spec.repr_bytes, target)) >= 3
+    assert st.get_root().root == one.get_root().root
+    want = narrow_limbs(one.comm)
+    if keep_comm == "device":
+        assert st.comm.dtype == torch.int16 and torch.equal(st.comm, want)
+    elif keep_comm:
+        assert st.comm.dtype == np.uint16
+        assert np.array_equal(st.comm, want.numpy().view(np.uint16))
+    else:
+        assert st.comm is None
+
+
+@pytest.mark.parametrize("keep_comm", [True, False, "device"])
+def test_streamed_ligero_batches_go_through_encode(keep_comm):
+    """Each row batch of a streamed Ligero commit reaches the encoding's
+    encode as stored (16-bit rows, with the destination of its kept 16-bit
+    codewords), so a wrapper set on an instance's encode sees and can alter
+    every batch: what was kept is what the wrapper returned or wrote."""
+    spec, enc, n_rows, target = _kept_case_encoding("ligero-stages")
+    npr = enc.get_dims(1)[1]
+    rng = np.random.default_rng(5)
+    coeffs = [int(v) % spec.modulus for v in rng.integers(0, 1 << 63, size=n_rows * npr)]
+    seen = []
+    encode = enc.encode
+
+    def spy(rows, *args, **kwargs):
+        seen.append((rows.dtype, rows.shape[0], args))
+        return encode(rows, *args, **kwargs)
+
+    enc.encode = spy
+    st = streamed.commit_streamed(ints_to_limbs(coeffs, spec).astype(np.uint16), enc,
+                                  target_batch_rows=target, keep_comm=keep_comm, device="cpu")
+    batches = streamed._row_batches(n_rows, spec.repr_bytes, target)
+    assert [(d, b) for d, b, _ in seen] == [(torch.int16, r1 - r0) for r0, r1 in batches]
+    assert all((a[0] is None) == (keep_comm is False) for _, _, a in seen)
+    assert st.get_root().root == port.commit(coeffs, LigeroEncoding(spec, 4, 16),
+                                             device="cpu").get_root().root
 
 
 @pytest.mark.parametrize("spec,dims", [(FT63, (16, 64)), (FT255, (4, 16))], ids=["ft63", "ft255"])
